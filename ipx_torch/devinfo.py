@@ -1,0 +1,33 @@
+"""What the measuring scripts share: the card's name and power limit, and a
+CUDA-event timer."""
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def nvidia_smi_line() -> str:
+    """First line of ``nvidia-smi --query-gpu=name,power.limit``: every
+    number taken on a card is reported beside it (a card set below its
+    maximum power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` calls after ``warm``
+    warm-up calls, between two CUDA events on the current stream."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps

@@ -1,0 +1,84 @@
+"""Batch-of-LPs solve loop.
+
+The whole Mehrotra step is written with a leading batch dimension, and ONE
+Python loop drives the entire batch: every instance advances in lock-step,
+instances that have converged or failed are frozen by ``step_masked``'s
+per-lane select, and the loop exits when no instance is still RUNNING.  B
+independent m x m Cholesky factorizations and (m, n) x (n, m) assemblies
+become single batched device calls.
+
+A "batched LP" is an :class:`ipx_torch.problem.lp.LP` whose fields carry a
+leading batch dimension.  All instances in a batch share (m, n).
+"""
+from __future__ import annotations
+
+import torch
+
+from ipx_torch.ipm import mehrotra
+from ipx_torch.ipm.state import IPMState, init_state
+from ipx_torch.numerics import vdot
+from ipx_torch.options import SolverOptions, check_ported
+from ipx_torch.problem.lp import LP
+from ipx_torch.status import Status
+
+
+def stack_lps(lps) -> LP:
+    """Stack a sequence of same-shape single-instance LPs into one batched
+    LP."""
+    lps = list(lps)
+    if not lps:
+        raise ValueError("empty LP batch")
+    if any(lp.A.ndim != 2 for lp in lps):
+        raise ValueError("stack_lps takes single-instance LPs (A of rank 2)")
+    shapes = {(lp.m, lp.n) for lp in lps}
+    if len(shapes) != 1:
+        raise ValueError(f"batch mixes LP shapes: {sorted(shapes)}")
+    return LP(c=torch.stack([lp.c for lp in lps]),
+              A=torch.stack([lp.A for lp in lps]),
+              b=torch.stack([lp.b for lp in lps]),
+              obj_offset=torch.stack([lp.obj_offset for lp in lps]))
+
+
+def batch_starting_state(lp: LP, opts: SolverOptions):
+    """Mehrotra starting point of every instance -> (IPMState, AA^T
+    factor).  The factor is loop-invariant and reused every iteration for
+    the feasibility projection."""
+    check_ported(opts)
+    lp = lp.with_a_storage(opts)
+    x0, y0, s0, fac = mehrotra.starting_point(lp, opts)
+    mu0 = vdot(x0, s0) / lp.n
+    st = init_state(x0, y0, s0, mu0, opts.max_iter)
+    return mehrotra.refresh_residuals(lp, st, opts), fac
+
+
+def run_batch(lp: LP, opts: SolverOptions,
+              state0: IPMState | None = None) -> IPMState:
+    """Solve a batch of LPs.
+
+    The loop condition ``any(lane RUNNING and under the cap)`` is the one
+    device-to-host read per iteration.  ``state0`` resumes or warm-starts
+    the whole batch; its residual fields are refreshed here.
+    """
+    check_ported(opts)
+    lp = lp.with_a_storage(opts)
+    start, fac_aat = batch_starting_state(lp, opts)
+    if state0 is None:
+        st = start
+    else:
+        st = mehrotra.refresh_residuals(lp, state0, opts)
+    running = int(Status.RUNNING)
+    while bool(((st.status == running) & (st.it < opts.max_iter)).any()):
+        st = mehrotra.step_masked(lp, st, opts, fac_aat)
+    return mehrotra.finalize_status(st, opts)
+
+
+def run_batch_fixed_iters(lp: LP, state: IPMState, num_iters: int,
+                          opts: SolverOptions, fac_aat=None) -> IPMState:
+    """Advance the whole batch exactly ``num_iters`` steps (no masking, no
+    host reads): the steady-state cost of one batched Mehrotra iteration,
+    for rate measurements."""
+    check_ported(opts)
+    lp = lp.with_a_storage(opts)
+    for _ in range(num_iters):
+        state = mehrotra.mehrotra_step(lp, state, opts, fac_aat)
+    return state

@@ -1,0 +1,131 @@
+"""Random feasible LP generation with a known optimal solution.
+
+Sample a strictly complementary primal-dual pair (x*, y*, s*) and construct
+(b, c) from it, so the optimal objective c@x* is known by construction and
+serves as a test oracle.  ``random_feasible_lp`` is the host (numpy) form;
+``random_feasible_batch_device`` makes a whole batch on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ipx_torch.problem.lp import LP
+
+
+@dataclass
+class GeneratedLP:
+    c: np.ndarray
+    A: np.ndarray
+    b: np.ndarray
+    x_star: np.ndarray
+    y_star: np.ndarray
+    s_star: np.ndarray
+    obj_star: float
+
+
+def random_feasible_lp(
+    m: int,
+    n: int,
+    seed: int = 0,
+    support: int | None = None,
+    scale_spread: float = 0.0,
+) -> GeneratedLP:
+    """Generate a dense standard-form LP with a known optimum.
+
+    Construction: A ~ N(0, 1/n); pick a support P of size ``support``
+    (default m, a nondegenerate vertex); x*_P > 0, x*_N = 0; s*_N > 0,
+    s*_P = 0; y* ~ N(0,1). Then b = A x*, c = A^T y* + s*. Strict
+    complementarity => c@x* = b@y* is the unique optimal value.
+
+    ``scale_spread`` > 0 multiplies rows/cols by 10**U(-spread, spread) to
+    produce badly scaled instances.
+    """
+    rng = np.random.default_rng(seed)
+    if support is None:
+        support = m
+    support = min(support, n)
+
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    if scale_spread > 0:
+        A *= 10.0 ** rng.uniform(-scale_spread, scale_spread, size=(m, 1))
+        A *= 10.0 ** rng.uniform(-scale_spread, scale_spread, size=(1, n))
+
+    perm = rng.permutation(n)
+    P = perm[:support]
+    N = perm[support:]
+
+    x_star = np.zeros(n)
+    x_star[P] = rng.uniform(0.5, 2.0, size=support)
+    s_star = np.zeros(n)
+    s_star[N] = rng.uniform(0.5, 2.0, size=n - support)
+    y_star = rng.standard_normal(m)
+
+    b = A @ x_star
+    c = A.T @ y_star + s_star
+    obj_star = float(c @ x_star)
+    return GeneratedLP(c=c, A=A, b=b, x_star=x_star, y_star=y_star,
+                       s_star=s_star, obj_star=obj_star)
+
+
+@dataclass
+class GeneratedBatch:
+    """A batched LP with its constructed optimum, all on one device."""
+    lp: LP
+    x_star: torch.Tensor    # (B, n)
+    y_star: torch.Tensor    # (B, m)
+    s_star: torch.Tensor    # (B, n)
+    obj_star: torch.Tensor  # (B,) float64
+
+
+def lp_from_optimum(A: torch.Tensor, x_star: torch.Tensor,
+                    y_star: torch.Tensor, s_star: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> GeneratedBatch:
+    """The batched LP whose optimum is (x*, y*, s*): b = A x*,
+    c = A^T y* + s*, both formed in ``dtype`` from A's STORED values (a
+    bf16-stored A stays bf16 in the LP; b and c see its exact values).
+    ``obj_star = c@x*`` is taken in float64 from the ``dtype`` data, so it
+    is the optimum of the instance the solver is given."""
+    Ad = A.to(dtype)
+    xs, ys, ss = x_star.to(dtype), y_star.to(dtype), s_star.to(dtype)
+    b = torch.matmul(Ad, xs.unsqueeze(-1)).squeeze(-1)
+    c = torch.matmul(ys.unsqueeze(1), Ad).squeeze(1) + ss
+    obj = (c.double() * xs.double()).sum(-1)
+    A_lp = A if A.dtype == torch.bfloat16 else Ad
+    lp = LP(c=c, A=A_lp, b=b,
+            obj_offset=torch.zeros(A.shape[0], dtype=dtype, device=A.device))
+    return GeneratedBatch(lp=lp, x_star=xs, y_star=ys, s_star=ss,
+                          obj_star=obj)
+
+
+def random_feasible_batch_device(batch: int, m: int, n: int,
+                                 generator: torch.Generator,
+                                 a_storage: str = "float32",
+                                 dtype: torch.dtype = torch.float32,
+                                 device="cuda") -> GeneratedBatch:
+    """``batch`` distinct instances of :func:`random_feasible_lp`'s
+    construction (support m), drawn on ``device`` from ``generator``.
+
+    With ``a_storage="bfloat16"`` the DATA is rounded to bf16 before b and c
+    are computed from it, so bf16 storage is lossless and the constructed
+    optimum is exact for the solved instance.  A float32 draw of A for the
+    whole batch is a transient ``4*batch*m*n`` bytes.
+    """
+    if generator.device != torch.device(device):
+        raise ValueError(f"generator lives on {generator.device}, "
+                         f"batch requested on {device}")
+    f32 = torch.float32
+    kw = dict(generator=generator, device=device, dtype=f32)
+    A = torch.randn(batch, m, n, **kw) / (n ** 0.5)
+    if a_storage == "bfloat16":
+        A = A.to(torch.bfloat16)
+    perm = torch.argsort(torch.rand(batch, n, **kw), dim=-1)
+    x_star = torch.zeros(batch, n, device=device, dtype=f32)
+    x_star.scatter_(1, perm[:, :m], 0.5 + 1.5 * torch.rand(batch, m, **kw))
+    s_star = torch.zeros(batch, n, device=device, dtype=f32)
+    s_star.scatter_(1, perm[:, m:],
+                    0.5 + 1.5 * torch.rand(batch, n - m, **kw))
+    y_star = torch.randn(batch, m, **kw)
+    return lp_from_optimum(A, x_star, y_star, s_star, dtype)

@@ -1,0 +1,207 @@
+"""No-rescue convergence probe of the main path on the GPU.
+
+    python3 probes/norescue_gpu.py [--batch 64] [--m 1024] [--n 2048]
+
+How many lanes of a batch end OPTIMAL without the rescue ladder, and what
+moves that count.  Runs ``ipx_torch.solve_batch`` on the same instances under
+a list of variants and prints one JSON line per variant with the status
+counts, the OPTIMAL count per 16 lanes and the quartiles of the best-iterate
+gap:
+
+  baseline            the slice's options, this package's kernels
+  plain_kernels       the four kernel wrappers replaced by their plain versions
+  chol_f64+trsm_f64   library factor and triangular solves done in float64
+  asm_f64, matvec_f64, asm_f64+matvec_f64   the assembly / the A products
+                      computed in float64 and rounded once (what exact sums
+                      would give)
+  asm_f64+plain_matvecs, plain_asm+matvec_f64   one of the two exact, the
+                      other the plain version (one float32 chain per sum)
+  chunks_of_16        the same lanes solved as separate batches of 16
+  refine_solve_cg=-1, robust_fused_bf16, robust_xla_f32   other options
+  numpy_instances     instances drawn on the host with numpy (seeds 100..)
+  firstN_gpu / firstN_cpu   the first N lanes alone (--cpu-lanes, default
+                      16), on the card and on the host's CPU (plain versions),
+                      for a like-for-like pair
+
+The variants patch module attributes for the length of one run; nothing of
+the package depends on this file.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import ipx_torch
+from ipx_torch.devinfo import nvidia_smi_line
+from ipx_torch.ipm.batched import stack_lps
+from ipx_torch.kernels import cholesky as pk
+from ipx_torch.kernels import fused as fk
+from ipx_torch.linsys import normal_eq as ne
+from ipx_torch.problem.generate import random_feasible_batch_device
+from ipx_torch.problem.lp import LP, make_lp
+
+
+def numpy_instance(m: int, n: int, seed: int):
+    """One instance of the device generator's construction, drawn with
+    numpy: A rounded to bf16, b and c formed in f32 from the rounded A."""
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    A = torch.from_numpy(A).to(torch.bfloat16).float().numpy()
+    perm = rng.permutation(n)
+    x = np.zeros(n, np.float32)
+    x[perm[:m]] = rng.uniform(0.5, 2.0, m)
+    s = np.zeros(n, np.float32)
+    s[perm[m:]] = rng.uniform(0.5, 2.0, n - m)
+    y = rng.standard_normal(m).astype(np.float32)
+    c = (A.T @ y + s).astype(np.float32)
+    return c, A, (A @ x).astype(np.float32), float(c.astype(np.float64) @ x)
+
+
+def report(tag: str, sols) -> None:
+    status: dict = {}
+    for s in sols:
+        status[s.status_name] = status.get(s.status_name, 0) + 1
+    gaps = sorted(s.rel_gap for s in sols)
+    q = len(gaps) // 4
+    print(json.dumps({
+        "variant": tag, "lanes": len(sols), "status": status,
+        "optimal_per_16": [sum(s.optimal for s in sols[i:i + 16])
+                           for i in range(0, len(sols), 16)],
+        "gap_quartiles": [gaps[q], gaps[2 * q], gaps[min(3 * q, len(gaps) - 1)]],
+    }), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--m", type=int, default=1024)
+    ap.add_argument("--n", type=int, default=2048)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu-lanes", type=int, default=16,
+                    help="lanes of the card-against-CPU pair (0: skip it)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.stderr.write("norescue_gpu: no CUDA device\n")
+        return 2
+    print(json.dumps({"card": nvidia_smi_line(), "batch": args.batch, "m": args.m,
+                      "n": args.n, "seed": args.seed}), flush=True)
+
+    opts = ipx_torch.SolverOptions.throughput(
+        chol_backend="xla", a_storage="bfloat16", augmented_fallback=False,
+        max_iter=64)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    lp = random_feasible_batch_device(args.batch, args.m, args.n, gen,
+                                      a_storage="bfloat16").lp
+    run = lambda o=opts, p=lp: ipx_torch.solve_batch(p, options=o)
+
+    report("baseline", run())
+
+    kernels = (fk.ata_apply, fk.a_matvec, fk.at_matvec,
+               pk.assemble_sym_batched)
+    fk.ata_apply = lambda A, v, alpha, w, beta=None: fk.ata_apply_plain(
+        A, v, alpha, w, beta)
+    fk.a_matvec, fk.at_matvec = fk.a_matvec_plain, fk.at_matvec_plain
+    pk.assemble_sym_batched = pk.assemble_sym_batched_plain
+    try:
+        report("plain_kernels", run())
+    finally:
+        (fk.ata_apply, fk.a_matvec, fk.at_matvec,
+         pk.assemble_sym_batched) = kernels
+
+    chol_ex, chol_solve = torch.linalg.cholesky_ex, ne._chol_solve
+
+    def chol64(Ms, check_errors=False):
+        L, info = chol_ex(Ms.double(), check_errors=False)
+        return L.to(Ms.dtype), info
+
+    def trsm64(fac, rhs):
+        L = fac.L.double()
+        t = torch.linalg.solve_triangular(L, rhs.double().unsqueeze(-1),
+                                          upper=False)
+        return torch.linalg.solve_triangular(
+            L.mT, t, upper=True).squeeze(-1).to(rhs.dtype)
+
+    torch.linalg.cholesky_ex, ne._chol_solve = chol64, trsm64
+    try:
+        report("chol_f64+trsm_f64", run())
+    finally:
+        torch.linalg.cholesky_ex, ne._chol_solve = chol_ex, chol_solve
+
+    def asm64(A, d2):
+        Ad = A.double()
+        M = torch.matmul(Ad * d2.double().unsqueeze(1), Ad.mT).float()
+        return 0.5 * (M + M.mT)
+
+    def a64(A, w):
+        return torch.matmul(A.double(), w.double().unsqueeze(-1)
+                            ).squeeze(-1).float()
+
+    def at64(A, v):
+        return torch.matmul(v.double().unsqueeze(1), A.double()
+                            ).squeeze(1).float()
+
+    def ata64(A, v, alpha, w, beta=None):
+        t = at64(A, v)
+        zero = torch.zeros_like(t)
+        e = t + (zero if beta is None else beta)
+        u = (zero if alpha is None else alpha) * e + (zero if w is None else w)
+        return a64(A, u), t
+
+    plain_mvs = (fk.ata_apply_plain, fk.a_matvec_plain, fk.at_matvec_plain)
+    for tag, asm, mvs in (
+            ("asm_f64", asm64, None),
+            ("matvec_f64", None, (ata64, a64, at64)),
+            ("asm_f64+matvec_f64", asm64, (ata64, a64, at64)),
+            ("asm_f64+plain_matvecs", asm64, plain_mvs),
+            ("plain_asm+matvec_f64", pk.assemble_sym_batched_plain,
+             (ata64, a64, at64))):
+        if asm:
+            pk.assemble_sym_batched = asm
+        if mvs:
+            fk.ata_apply, fk.a_matvec, fk.at_matvec = mvs
+        try:
+            report(tag, run())
+        finally:
+            (fk.ata_apply, fk.a_matvec, fk.at_matvec,
+             pk.assemble_sym_batched) = kernels
+
+    sols = []
+    for i in range(0, args.batch, 16):
+        cut = lambda t: t[i:i + 16].contiguous()
+        sols += run(p=LP(c=cut(lp.c), A=cut(lp.A), b=cut(lp.b),
+                         obj_offset=cut(lp.obj_offset)))
+    report("chunks_of_16", sols)
+
+    report("refine_solve_cg=-1", run(opts.replace(refine_solve_cg=-1)))
+    report("robust_fused_bf16", run(ipx_torch.SolverOptions(
+        augmented_fallback=False, a_storage="bfloat16",
+        matvec_backend="fused")))
+    report("robust_xla_f32", run(ipx_torch.SolverOptions(
+        augmented_fallback=False)))
+
+    host = stack_lps([make_lp(*numpy_instance(args.m, args.n, 100 + i)[:3],
+                              device="cuda") for i in range(args.batch)])
+    report("numpy_instances", run(p=host))
+
+    for tag, src in (("device_made", lp), ("numpy_made", host)):
+        k = args.cpu_lanes
+        if k <= 0:
+            break
+        cut = lambda t: t[:k].contiguous()
+        first = LP(c=cut(src.c), A=cut(src.A), b=cut(src.b),
+                   obj_offset=cut(src.obj_offset))
+        report(f"first{k}_gpu/{tag}", run(p=first))
+        report(f"first{k}_cpu/{tag}", ipx_torch.solve_batch(
+            first.to("cpu"), options=opts, device="cpu"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
