@@ -3,7 +3,8 @@
 The leaves of another implementation's ``LP`` and ``IPMState`` (for one
 instance, or with a leading batch axis), given as numpy arrays, become this
 package's batched dataclasses field by field, and back, so that two
-implementations can take a step from the same state.  Takes numpy only.
+implementations can take a step from the same state, or one can solve with
+the other's factor.  Takes numpy only.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from ipx_torch.ipm.state import IPMState
+from ipx_torch.kernels.cholesky import NB
+from ipx_torch.linsys.normal_eq import NormalEqFactor
 from ipx_torch.problem.lp import LP
 
 _INT_FIELDS = ("it", "status")
@@ -68,3 +71,31 @@ def state_to_numpy(state: IPMState) -> dict:
     """Every field as a numpy array with its leading batch axis."""
     return {f.name: getattr(state, f.name).detach().to("cpu").numpy()
             for f in dataclasses.fields(IPMState)}
+
+
+def factor_from_ipx(panels, W, j, d2, ok, device="cuda") -> NormalEqFactor:
+    """A panel-major normal-equations factor (``chol_backend="pallas_left"``)
+    from the numpy leaves of another implementation's, stacked over the
+    batch: ``panels[k]`` (B, 128, m_pad - 128 k), ``W`` (B, m_pad / 128, 128,
+    128), ``j`` (B, m), ``d2`` (B, n), ``ok`` (B,).  One instance's leaves
+    (each of one rank less) become a batch of one."""
+    panels = [_batched(p, 2) for p in panels]
+    if not panels:
+        raise ValueError("a panel-major factor has at least one panel")
+    B, m_pad = panels[0].shape[0], panels[0].shape[2]
+    for k, p in enumerate(panels):
+        if p.shape != (B, NB, m_pad - k * NB):
+            raise ValueError(f"panels[{k}] is {p.shape}, expected "
+                             f"{(B, NB, m_pad - k * NB)}")
+    W = _batched(W, 3)
+    if len(panels) * NB != m_pad or W.shape != (B, len(panels), NB, NB):
+        raise ValueError(f"{len(panels)} panels and W{W.shape} do not make "
+                         f"a factor of order {m_pad}")
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
+                                 device=device)                  # copies
+    return NormalEqFactor(
+        L=torch.zeros(0, dtype=torch.float32, device=device),
+        j=f32(_batched(j, 1)), d2=f32(_batched(d2, 1)),
+        ok=torch.tensor(np.atleast_1d(np.asarray(ok)), dtype=torch.bool,
+                        device=device),
+        W=f32(W), LTp=tuple(f32(p) for p in panels))

@@ -38,60 +38,17 @@
 // summed in two levels: chunks of KC = 64 columns in registers, the chunk
 // sums added in a fixed order into a per-thread total kept in shared memory
 // (64 KB a block; registers hold one 8 x 8 block only, and only one block
-// fits an SM anyway).  The error bound drops from n to KC + n / KC
+// fits an SM anyway).  The tile product lives in panel_common.cuh, shared with
+// the panel kernels of the factor.  The error bound drops from n to KC + n / KC
 // roundings.
 //
 // Shapes: any m, n >= 1; ragged edges are masked in the kernel.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "panel_common.cuh"
 
 namespace {
 
-constexpr int TILE = 128;           // rows and columns of M per block
-constexpr int BK = 16;              // contraction depth per shared-memory pass
-constexpr int LDS = TILE + 4;       // shared row stride (floats), 16-byte rows
-constexpr int THREADS = 256;        // 16 x 16 threads, 8 x 8 sums each
-constexpr int KC = 64;              // columns per chunk of the two-level sum
-static_assert(KC % BK == 0, "a chunk is a whole number of passes");
-constexpr size_t TOT_BYTES = size_t(64) * THREADS * sizeof(float);
-
-// load8: eight consecutive k-entries of one row of A, as floats, zero outside
-__device__ __forceinline__ void unpack8(const uint4& q, float* out) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        float2 f = __bfloat1622float2(p[e]);
-        out[2 * e] = f.x;
-        out[2 * e + 1] = f.y;
-    }
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* row, int k, int n,
-                                      bool row_ok, bool vec_ok, float* out) {
-    if (row_ok && vec_ok && k + 8 <= n) {
-        unpack8(*reinterpret_cast<const uint4*>(row + k), out);
-        return;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        out[e] = (row_ok && k + e < n) ? __bfloat162float(row[k + e]) : 0.f;
-}
-
-__device__ __forceinline__ void load8(const float* row, int k, int n,
-                                      bool row_ok, bool vec_ok, float* out) {
-    if (row_ok && vec_ok && k + 8 <= n) {
-        const float4 a = *reinterpret_cast<const float4*>(row + k);
-        const float4 c = *reinterpret_cast<const float4*>(row + k + 4);
-        out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-        out[4] = c.x; out[5] = c.y; out[6] = c.z; out[7] = c.w;
-        return;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        out[e] = (row_ok && k + e < n) ? row[k + e] : 0.f;
-}
+using namespace ipx_tile;   // the tile product and its two-level sum
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -99,9 +56,7 @@ assemble_sym_kernel(const T* __restrict__ A, const float* __restrict__ d2,
                     float* M, int m, int n, int vec_ok) {
     __shared__ __align__(16) float Xs[BK][LDS];   // (A_i * d2) tile, [k][row]
     __shared__ __align__(16) float Ys[BK][LDS];   // A_j tile,        [k][row]
-    // running total of the finished chunks: entry e of thread t at
-    // [e * THREADS + t], private to its thread, so no barrier guards it
-    extern __shared__ float tot[];
+    extern __shared__ float tot[];                // parked chunk sums
 
     // blockIdx.x -> lower-triangle tile (bi >= bj), p = bi (bi + 1) / 2 + bj
     const int p = blockIdx.x;
@@ -116,86 +71,23 @@ assemble_sym_kernel(const T* __restrict__ A, const float* __restrict__ d2,
     float* Mb = M + b * size_t(m) * size_t(m);
 
     const int tid = threadIdx.x;
-    // loader role: row lr of each tile, k-entries lk .. lk + 7 of the pass
-    const int lr = tid >> 1, lk = (tid & 1) * 8;
+    // loader role: row lr of each operand tile
+    const int lr = tid >> 1;
     const int xi = bi * TILE + lr, yj = bj * TILE + lr;
     const bool x_ok = xi < m, y_ok = yj < m;
     const T* xrow = Ab + size_t(x_ok ? xi : 0) * n;
     const T* yrow = Ab + size_t(y_ok ? yj : 0) * n;
-    // compute role: rows ty*4..+3 and 64+ty*4..+3, columns likewise with tx
     const int tx = tid & 15, ty = tid >> 4;
 
     float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            acc[i][j] = 0.f;
-            tot[(i * 8 + j) * THREADS + tid] = 0.f;
-        }
-
-    float xr[8], yr[8];
-    load8(xrow, lk, n, x_ok, vec_ok, xr);
-    load8(yrow, lk, n, y_ok, vec_ok, yr);
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        xr[e] *= (lk + e < n) ? d2b[lk + e] : 0.f;
-
-    for (int k0 = 0; k0 < n; k0 += BK) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            Xs[lk + e][lr] = xr[e];
-            Ys[lk + e][lr] = yr[e];
-        }
-        __syncthreads();
-        const int kn = k0 + BK + lk;         // this thread's next entries
-        if (k0 + BK < n) {
-            load8(xrow, kn, n, x_ok, vec_ok, xr);
-            load8(yrow, kn, n, y_ok, vec_ok, yr);
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-                xr[e] *= (kn + e < n) ? d2b[kn + e] : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            const float4 a0 = *reinterpret_cast<const float4*>(&Xs[k][ty * 4]);
-            const float4 a1 =
-                *reinterpret_cast<const float4*>(&Xs[k][64 + ty * 4]);
-            const float4 b0 = *reinterpret_cast<const float4*>(&Ys[k][tx * 4]);
-            const float4 b1 =
-                *reinterpret_cast<const float4*>(&Ys[k][64 + tx * 4]);
-            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            const float c[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-        }
-        if ((k0 + BK) % KC == 0) {           // a chunk is complete
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    tot[(i * 8 + j) * THREADS + tid] += acc[i][j];
-                    acc[i][j] = 0.f;
-                }
-        }
-        __syncthreads();
-    }
-    // total = finished chunks + the ragged last chunk (zero if n % KC == 0)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            acc[i][j] += tot[(i * 8 + j) * THREADS + tid];
+    assembly_tile(xrow, yrow, x_ok, y_ok, d2b, n, vec_ok != 0, Xs, Ys, tot,
+                  tid, acc);
 
     int gi[8], gj[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-        const int off = (e < 4) ? e : 60 + e;          // 0..3, 64..67
-        gi[e] = bi * TILE + ty * 4 + off;
-        gj[e] = bj * TILE + tx * 4 + off;
+        gi[e] = bi * TILE + ty * 4 + tile_off(e);
+        gj[e] = bj * TILE + tx * 4 + tile_off(e);
     }
 
     if (bi != bj) {

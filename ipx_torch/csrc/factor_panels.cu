@@ -1,0 +1,339 @@
+// Panel kernels of the left-looking blocked Cholesky factor (NB = 128), which
+// emits the factor as suffix-only transposed row panels
+//
+//   panels[k]  (B, NB, m - k NB):  rows k NB .. (k+1) NB of L^T from the
+//                                  diagonal on
+//   W          (B, m / NB, NB, NB): inverses of the diagonal blocks of L
+//
+// Per panel k the caller runs
+//
+//   C_k = (start tile row) - sum_{j<k} P_j[:, o-jNB : o-jNB+NB]^T P_j[:, o-jNB:]
+//         fused_panel / accum_panel below, o = k NB
+//   L_D^T, W_D = diag_factor_inv(C_k[:, :NB])
+//   panels[k] = [L_D^T | W_D C_k[:, NB:]]        a library product outside
+//
+// fused_panel replaces the Pallas kernel _fused_panel_kernel of
+// ipx/kernels/cholesky.py (entry factor_fused_panels): the start tile is
+// assembled from the bf16-stored A,
+//   J_r (A_k * d2) A_{k:}^T J_c  +  reg on the diagonal of the diagonal tile,
+// so the scaled, regularised normal matrix is never written to device memory.
+// accum_panel replaces _accum_panel_kernel (entry factor_lt_panels): the start
+// tile is read from an assembled, scaled, regularised matrix Ms.
+// diag_factor_inv has no TPU kernel behind it: there the 128 x 128 diagonal
+// Cholesky and its inverse are an unrolled chain of XLA operations between
+// the kernel calls (_factor_block_twolevel); run operation by operation from
+// PyTorch that chain is some 1,800 tiny launches a panel, so here it is one
+// kernel.
+//
+// Bound on this card: operations.  The assembly is m (m + 1) / 2 * n float32
+// FMAs an instance and the subtraction NB^3 sum_k k (nb - k); against that
+// stand the A row blocks and the prior panels read once each.  The design is
+// the register-tiled product of panel_common.cuh: grid (column tile t =
+// k..nb-1, instance), one block per 128 x 128 tile of C_k, so late panels
+// with few tiles and a batch of one simply launch few blocks.
+//
+// What is kept from the TPU kernels is the function.  Not kept: the chunking
+// of the batch by fast-memory size, the copy slots and semaphores, the 3-way
+// bf16 split of the row operand (A is upcast in registers, the products are
+// float32 FMAs, which is what the split emulates), and the 2-term split mode:
+// the kernels are always f32-faithful.  No TF32 anywhere.
+//
+// Summation.  The assembly sums 64-column chunks in registers and the chunk
+// sums in shared memory, as assemble_sym.cu does.  The subtraction is summed
+// in an accumulator of its own, each prior panel's 128 terms in registers and
+// the panels' sums in shared memory, and the total is subtracted from the
+// start tile once: up to (nb - 1) NB terms chained onto the start value in
+// float32 would lose the digits the two-level assembly has just won.  The
+// start tile waits in C itself meanwhile (each thread reads back only what it
+// wrote).
+//
+// diag_factor_inv: one block per instance, the tile in shared memory.  The
+// factor is the column-sequential left-looking form, four lanes owning row i:
+//   L[i][j] = (a[i][j] - sum_{p<j} L[i][p] L[j][p]) / sqrt(max(d_j, tiny)),
+//   d_j = a[j][j] - sum_{p<j} L[j][p]^2,
+// the dot products accumulated in float64 and rounded once on store.  Only
+// the lower triangle of the tile is used (the fused kernel does not
+// symmetrise it).  A block that is not positive definite gets a non-positive
+// or non-finite diagonal entry, which the caller's `ok` test catches; nothing
+// traps.  The inverse W = L^-1 is forward substitution, four lanes owning
+// column c, again float64 sums rounded once per entry.  Latency-bound: about
+// NB^3 / 3 FMAs for each of the two.
+//
+// Shapes: m and n multiples of 128 (the caller pads the assembled route).
+
+#include "panel_common.cuh"
+
+#include <float.h>
+
+namespace {
+
+using namespace ipx_tile;
+
+// FUSED: start tile assembled from A (type T).  Otherwise read from Ms.
+template <typename T, bool FUSED>
+__global__ void __launch_bounds__(THREADS)
+panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
+             const float* __restrict__ jv, const float* __restrict__ reg,
+             const float* __restrict__ Ms, PanelPtrs prior, float* C, int m,
+             int n, int k, int vec_ok) {
+    __shared__ __align__(16) float Xs[BK][LDS];
+    __shared__ __align__(16) float Ys[BK][LDS];
+    extern __shared__ float tot[];                // parked sums, TOT_BYTES
+
+    const int t = k + blockIdx.x;                 // column tile of M
+    const size_t b = blockIdx.y;
+    const int o = k * TILE, w = m - o;
+    const int tid = threadIdx.x;
+    const int tx = tid & 15, ty = tid >> 4;
+    float* Cb = C + b * size_t(TILE) * w + size_t(t - k) * TILE;
+
+    int ri[8], cj[8];                             // local row, local column
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        ri[e] = ty * 4 + tile_off(e);
+        cj[e] = tx * 4 + tile_off(e);
+    }
+
+    float acc[8][8];
+    if constexpr (FUSED) {
+        const T* Ab = A + b * size_t(m) * size_t(n);
+        const int lr = tid >> 1;
+        assembly_tile(Ab + size_t(o + lr) * n, Ab + size_t(t * TILE + lr) * n,
+                      true, true, d2 + b * size_t(n), n, vec_ok != 0, Xs, Ys,
+                      tot, tid, acc);
+        const float* jb = jv + b * size_t(m);
+        const float rg = reg[b];
+        float jr[8], jc[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            jr[e] = jb[o + ri[e]];
+            jc[e] = jb[t * TILE + cj[e]];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                float v = __fmul_rn(__fmul_rn(acc[i][j], jr[i]), jc[j]);
+                if (t == k && ri[i] == cj[j]) v = __fadd_rn(v, rg);
+                Cb[size_t(ri[i]) * w + cj[j]] = v;
+            }
+    }
+
+    // ---- sum_{j<k} P_j[:, (k-j) NB + r]^T P_j[:, (t-j) NB + c] --------------
+    zero_total(tot, tid);
+    const int lk = tid >> 4, lc = (tid & 15) * 8;   // loader: row of the pass,
+                                                    // eight columns
+    for (int jj = 0; jj < k; ++jj) {
+        const int wj = m - jj * TILE;
+        const float* P = prior.p[jj] + b * size_t(TILE) * wj;
+        const float* Px = P + (k - jj) * TILE + lc;
+        const float* Py = P + (t - jj) * TILE + lc;
+        zero_acc(acc);
+        for (int k0 = 0; k0 < TILE; k0 += BK) {
+            const size_t ro = size_t(k0 + lk) * wj;
+            const float4 x0 = *reinterpret_cast<const float4*>(Px + ro);
+            const float4 x1 = *reinterpret_cast<const float4*>(Px + ro + 4);
+            const float4 y0 = *reinterpret_cast<const float4*>(Py + ro);
+            const float4 y1 = *reinterpret_cast<const float4*>(Py + ro + 4);
+            *reinterpret_cast<float4*>(&Xs[lk][lc]) = x0;
+            *reinterpret_cast<float4*>(&Xs[lk][lc + 4]) = x1;
+            *reinterpret_cast<float4*>(&Ys[lk][lc]) = y0;
+            *reinterpret_cast<float4*>(&Ys[lk][lc + 4]) = y1;
+            __syncthreads();
+            mma_pass(Xs, Ys, tx, ty, acc);
+            __syncthreads();
+        }
+        flush_acc(acc, tot, tid);                 // one prior panel is done
+    }
+
+    // ---- C = start - total, the one subtraction -----------------------------
+    const float* Mrow = FUSED ? nullptr
+                              : Ms + b * size_t(m) * m + size_t(o) * m
+                                    + size_t(t) * TILE;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const size_t at = size_t(ri[i]) * w + cj[j];
+            const float start = FUSED ? Cb[at]
+                                      : Mrow[size_t(ri[i]) * m + cj[j]];
+            Cb[at] = __fsub_rn(start, tot[(i * 8 + j) * THREADS + tid]);
+        }
+}
+
+template <typename T, bool FUSED>
+int launch_panel(const void* A, const float* d2, const float* jv,
+                 const float* reg, const float* Ms, const PanelPtrs& prior,
+                 float* C, int B, int m, int n, int k, cudaStream_t stream) {
+    auto kern = panel_kernel<T, FUSED>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TOT_BYTES));
+    if (err != cudaSuccess) return int(err);
+    const int vec_ok = reinterpret_cast<uintptr_t>(A) % 16 == 0;   // n % 8 == 0
+    dim3 grid(m / TILE - k, B);
+    kern<<<grid, THREADS, TOT_BYTES, stream>>>(
+        static_cast<const T*>(A), d2, jv, reg, Ms, prior, C, m, n, k, vec_ok);
+    return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// diag_factor_inv
+// ---------------------------------------------------------------------------
+
+constexpr int DN = 128;             // the diagonal block's edge (= TILE)
+constexpr int DQ = 4;               // threads that share one row's (column's)
+                                    // dot product
+constexpr int DTHREADS = DN * DQ;
+constexpr int DLD = DN + 4;         // row stride in shared memory: four rows
+                                    // times four neighbouring entries hit 16
+                                    // different bank pairs, and the spare
+                                    // columns make room for W (below)
+constexpr size_t DIAG_SMEM = (size_t(DN) * DLD + DN) * sizeof(double);
+
+// max(v, tiny) that lets a NaN through, as the reference's maximum does
+__device__ __forceinline__ double guard_pivot(double v) {
+    const double tiny = double(FLT_MIN);
+    return (v >= tiny || v != v) ? v : tiny;
+}
+
+// the value a float32 store keeps, as a double
+__device__ __forceinline__ double rnd32(double v) { return double(float(v)); }
+
+// sum over the DQ neighbouring lanes that share a row; every lane of the warp
+// must call it, and all DQ lanes get the same bits
+__device__ __forceinline__ double quad_sum(double v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    return v;
+}
+
+// Shared memory holds float32 values widened to double, so the inner loops
+// are loads and float64 FMAs with no conversions (a float32-to-float64
+// conversion costs a warp four times an FMA here).  L sits in the lower
+// triangle of the DN x DLD array; W = L^-1, lower triangular too, goes
+// transposed into the unused upper part shifted by one column:
+// W[r][c] at (c, r + 1), r >= c.  Each dot product is split over DQ lanes
+// (entries p = t, t + DQ, ...): the chains are sequential and short, and 16
+// warps a block are what hides the latency of their loads.
+__global__ void __launch_bounds__(DTHREADS)
+diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
+                       long long lt_bs, int lt_rs, float* W, long long w_bs) {
+    extern __shared__ double dsm[];
+    double* Ls = dsm;                   // DN x DLD
+    double* ad = dsm + DN * DLD;        // DN: the tile's own diagonal
+    const int tid = threadIdx.x;
+    const int i = tid / DQ, t = tid % DQ;       // row (column) and its lane
+    const size_t b = blockIdx.x;
+    const float* Cb = C + b * c_bs;
+
+    for (int e = tid; e < DN * DN; e += DTHREADS) {
+        const int r = e / DN, c = e % DN;
+        const double v = double(Cb[size_t(r) * c_rs + c]);
+        Ls[r * DLD + c] = v;            // only (r, c <= r) is read below
+        if (r == c) ad[r] = v;
+    }
+    __syncthreads();
+
+    // ---- Cholesky, column by column; DQ lanes own row i ---------------------
+    const double* li = Ls + i * DLD;
+    for (int j = 0; j < DN; ++j) {
+        const double* lj = Ls + j * DLD;
+        double s = 0.0, d = 0.0;
+        const int end = (i >= j) ? j : 0;       // rows above the diagonal idle
+        for (int p = t; p < end; p += DQ) {
+            const double a = li[p], c = lj[p];
+            s = fma(a, c, s);
+            d = fma(c, c, d);
+        }
+        s = quad_sum(s);
+        d = quad_sum(d);
+        if (i >= j && t == 0) {
+            const double dj = ad[j] - d;
+            // row j's entry is d_j / sqrt(max(d_j, tiny)): not positive for a
+            // block that is not positive definite
+            Ls[i * DLD + j] = rnd32((li[j] - s) * rsqrt(guard_pivot(dj)));
+        }
+        __syncthreads();
+    }
+
+    // ---- L^T out: (r, c) = L[c][r] on and above the diagonal, else 0 --------
+    float* LTb = LT + b * lt_bs;
+    for (int e = tid; e < DN * DN; e += DTHREADS) {
+        const int r = e / DN, c = e % DN;
+        LTb[size_t(r) * lt_rs + c] = (c >= r) ? float(Ls[c * DLD + r]) : 0.f;
+    }
+
+    // ---- W = L^-1 by forward substitution; DQ lanes own column c ------------
+    // The lanes of a warp walk the rows together from the warp's first
+    // column, entries above a column's own diagonal counting as 0.
+    const int c = i, c0 = (tid / 32) * (32 / DQ);
+    double* wc = Ls + c * DLD + 1;      // wc[r] = W[r][c], r >= c
+    for (int r = c0; r < DN; ++r) {
+        const double* lr = Ls + r * DLD;
+        double a = 0.0;
+        for (int p = c0 + t; p < r; p += DQ)
+            a = fma(-lr[p], (p >= c) ? wc[p] : 0.0, a);
+        a = quad_sum(a);
+        if (r >= c && t == 0)
+            wc[r] = rnd32((a + ((r == c) ? 1.0 : 0.0)) / guard_pivot(lr[r]));
+        __syncwarp();                   // wc[r] is read by the other lanes
+    }
+    __syncthreads();
+    float* Wb = W + b * w_bs;
+    for (int e = tid; e < DN * DN; e += DTHREADS) {
+        const int r = e / DN, cc = e % DN;
+        Wb[size_t(r) * DN + cc] =
+            (r >= cc) ? float(Ls[cc * DLD + 1 + r]) : 0.f;
+    }
+}
+
+}  // namespace
+
+// Panel k of the fused factor: C (B, NB, m - k NB) from A (B, m, n) bf16,
+// d2 (B, n), j (B, m), reg (B,) and the k prior panels (host array of k
+// device pointers, panel j being (B, NB, m - j NB) contiguous).
+// Returns 0, a cudaError_t, or -1 for arguments the kernel does not take.
+extern "C" int ipx_fused_panel(const void* A, const float* d2, const float* jv,
+                               const float* reg, const void* const* prior,
+                               float* C, int B, int m, int n, int k,
+                               void* stream) {
+    if (B < 1 || B > 65535 || m < TILE || m % TILE || n < TILE || n % TILE)
+        return -1;
+    if (k < 0 || k >= m / TILE) return -1;
+    PanelPtrs pp;
+    if (fill_panels(pp, prior, k) != 0) return -1;
+    return launch_panel<__nv_bfloat16, true>(
+        A, d2, jv, reg, nullptr, pp, C, B, m, n, k,
+        static_cast<cudaStream_t>(stream));
+}
+
+// Panel k from an assembled, scaled, regularised Ms (B, m, m) f32.
+extern "C" int ipx_accum_panel(const float* Ms, const void* const* prior,
+                               float* C, int B, int m, int k, void* stream) {
+    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
+    if (k < 0 || k >= m / TILE) return -1;
+    PanelPtrs pp;
+    if (fill_panels(pp, prior, k) != 0) return -1;
+    return launch_panel<float, false>(nullptr, nullptr, nullptr, nullptr, Ms,
+                                      pp, C, B, m, 0, k,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// C: B tiles of 128 x 128 f32 (instance stride c_bs, row stride c_rs, in
+// floats; lower triangle read) -> LT (instance stride lt_bs, row stride
+// lt_rs) = L^T and W (instance stride w_bs, rows contiguous) = L^-1.  LT may
+// be the memory of C: a block reads its whole tile before it writes.
+extern "C" int ipx_diag_factor_inv(const float* C, long long c_bs, int c_rs,
+                                   float* LT, long long lt_bs, int lt_rs,
+                                   float* W, long long w_bs, int B,
+                                   void* stream) {
+    if (B < 1 || c_rs < DN || lt_rs < DN || w_bs < DN * DN) return -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        diag_factor_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(DIAG_SMEM));
+    if (err != cudaSuccess) return int(err);
+    diag_factor_inv_kernel<<<B, DTHREADS, DIAG_SMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+        C, c_bs, c_rs, LT, lt_bs, lt_rs, W, w_bs);
+    return int(cudaGetLastError());
+}

@@ -4,6 +4,9 @@
 //   MODE_ATA  t = A^T v,  y = A (alpha * (t + beta) + w)   one read of A
 //   MODE_A    y = A w
 //   MODE_AT   t = A^T v
+//   MODE_A2   y = (A o A) w     the elementwise square of A, same stream as
+//                               MODE_A: diag(A diag(w) A^T) without a squared
+//                               copy of A in device memory
 //
 // Replaces the Pallas column-stripe kernels of ipx/kernels/fused.py:
 // _ata_kernel (entry ata_apply), _a_kernel (a_matvec), _at_kernel (at_matvec).
@@ -57,7 +60,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MODE_ATA = 0, MODE_A = 1, MODE_AT = 2;
+constexpr int MODE_ATA = 0, MODE_A = 1, MODE_AT = 2, MODE_A2 = 3;
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {
@@ -75,14 +78,22 @@ zero_of<__nv_bfloat16>() {
     return __float2bfloat16(0.f);
 }
 
-// dot of one shared-memory stripe row (W stored elements) with u (W doubles)
+// dot of one shared-memory stripe row (W stored elements) with u (W doubles);
+// SQ squares the row's entries first (exact in double)
+template <bool SQ>
+__device__ __forceinline__ double entry(float a) {
+    const double d = double(a);
+    return SQ ? d * d : d;
+}
+template <bool SQ>
 __device__ __forceinline__ double row_dot(const float* row, const double* u,
                                           int W) {
     double acc = 0.0;
 #pragma unroll 8
-    for (int c = 0; c < W; ++c) acc = fma(double(row[c]), u[c], acc);
+    for (int c = 0; c < W; ++c) acc = fma(entry<SQ>(row[c]), u[c], acc);
     return acc;
 }
+template <bool SQ>
 __device__ __forceinline__ double row_dot(const __nv_bfloat16* row,
                                           const double* u, int W) {
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(row);
@@ -90,8 +101,8 @@ __device__ __forceinline__ double row_dot(const __nv_bfloat16* row,
 #pragma unroll 8
     for (int c2 = 0; c2 < W / 2; ++c2) {
         float2 f = __bfloat1622float2(p[c2]);
-        acc = fma(double(f.x), u[2 * c2], acc);
-        acc = fma(double(f.y), u[2 * c2 + 1], acc);
+        acc = fma(entry<SQ>(f.x), u[2 * c2], acc);
+        acc = fma(entry<SQ>(f.y), u[2 * c2 + 1], acc);
     }
     return acc;
 }
@@ -119,6 +130,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
               double* __restrict__ ypart, int m, int n, int lw, int vec_ok,
               size_t as_bytes) {
     extern __shared__ uint4 smem_raw[];
+    constexpr bool ONLY_A = MODE == MODE_A || MODE == MODE_A2;
     const int W = 1 << lw;
     const int ld = stripe_ld(W, int(sizeof(T)));
     T* As = reinterpret_cast<T*>(smem_raw);
@@ -154,7 +166,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
                                           : zero_of<T>();
         }
     }
-    if (MODE != MODE_A) {
+    if (!ONLY_A) {
         for (int i = tid; i < m; i += THREADS) vs[i] = v[b * m + i];
     } else if (tid < W) {
         us[tid] = (c0 + tid < n) ? double(w[b * n + c0 + tid]) : 0.0;
@@ -162,7 +174,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
     __syncthreads();
 
     // ---- phase 1: t = A_S^T v, complete inside the block -------------------
-    if (MODE != MODE_A) {
+    if (!ONLY_A) {
         const int tx = tid & (W - 1), g = tid >> lw, R = THREADS >> lw;
         double acc = 0.0;
         for (int i = g; i < m; i += R)
@@ -194,7 +206,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
     if (MODE != MODE_AT) {
         double* yp = ypart + (b * ns + stripe) * size_t(m);
         for (int i = tid; i < m; i += THREADS)
-            yp[i] = row_dot(As + i * ld, us, W);
+            yp[i] = row_dot<MODE == MODE_A2>(As + i * ld, us, W);
     }
 }
 
@@ -255,6 +267,9 @@ int dispatch(int mode, const void* A, const float* v, const float* alpha,
     case MODE_AT:
         return launch<T, MODE_AT>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
                                   W, s);
+    case MODE_A2:
+        return launch<T, MODE_A2>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
+                                  W, s);
     }
     return -1;
 }
@@ -262,7 +277,8 @@ int dispatch(int mode, const void* A, const float* v, const float* alpha,
 }  // namespace
 
 // mode: 0 ata (needs v; alpha/beta/w may be null = zeros; writes y, t),
-//       1 a   (needs w; writes y),  2 at (needs v; writes t).
+//       1 a   (needs w; writes y),  2 at (needs v; writes t),
+//       3 a squared (needs w; writes y = (A o A) w).
 // ypart: (B, ceil(n / W), m) double scratch for modes 0 and 1.
 // Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
 extern "C" int ipx_fused_matvec(int mode, const void* A, int a_is_bf16,

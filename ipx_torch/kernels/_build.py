@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library at first use, and is
 loaded with ``ctypes``.  Libraries go to ``build/ipx_torch/`` beside the
 package (override with ``IPX_TORCH_BUILD_DIR``), named by a hash of the
-source and the flags, so an unchanged source is compiled once.  Nothing is
+source, the shared headers (``csrc/*.cuh``) and the flags, so an unchanged
+source is compiled once.  Nothing is
 built at import: machines without ``nvcc`` import every module and run the
 plain versions on CPU tensors.  A failed build raises.
 """
@@ -19,9 +20,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_matvec", "assemble_sym")
+SOURCES = ("fused_matvec", "assemble_sym", "factor_panels", "solve_panels")
+# Largest m of the panel-major factor and pair-solve
+# (``kernels.cholesky.MAX_M``).  The sources are compiled with it and
+# ``csrc/solve_panels.cu`` fails to compile if it outgrows one block's shared
+# memory, so this is the only place the limit is written.
+PANEL_MAX_M = 4864
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC",
+              f"-DIPX_PANEL_MAX_M={PANEL_MAX_M}")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -48,6 +55,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # included by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -9,7 +9,9 @@ in ONE read of A (``csrc/fused_matvec.cu``): with ``alpha = d2, w = 0`` it is
 the matrix-free normal operator; with ``alpha = None`` it is an independent
 pair ``(A @ w, A^T v)``; with ``alpha = d2`` and a precomputed ``w`` it is a
 whole KKT-refinement right-hand side.  ``a_matvec`` and ``at_matvec`` are
-the two halves on their own.
+the two halves on their own; ``a_matvec(A, w, square=True)`` streams the
+elementwise square of A instead, which gives ``diag(A diag(w) A^T)`` without
+a squared copy of A in device memory.
 
 For a CUDA tensor each wrapper launches its hand-written kernel or raises;
 for a CPU tensor, and only then, it evaluates the ``*_plain`` version, which
@@ -57,8 +59,11 @@ def _f32(A: torch.Tensor) -> torch.Tensor:
     return A if A.dtype == torch.float32 else A.to(torch.float32)
 
 
-def a_matvec_plain(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(_f32(A), w.unsqueeze(-1)).squeeze(-1)
+def a_matvec_plain(A: torch.Tensor, w: torch.Tensor,
+                   square: bool = False) -> torch.Tensor:
+    Af = _f32(A)
+    return torch.matmul(Af.square() if square else Af,
+                        w.unsqueeze(-1)).squeeze(-1)
 
 
 def at_matvec_plain(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -140,7 +145,7 @@ def _launch(name: str, mode: int, A, v, alpha, beta, w):
     # allocator hands that memory out again only to later work on the same
     # stream.
     y = t = ypart = None
-    if mode != 2:
+    if mode != 2:                       # 0 ata, 1 a, 2 at, 3 a squared
         y = torch.empty(B, m, **kw)
         ypart = torch.empty(B, -(-n // W), m, dtype=torch.float64,
                             device=A.device)
@@ -158,14 +163,15 @@ def _launch(name: str, mode: int, A, v, alpha, beta, w):
     return y, t
 
 
-def a_matvec(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``A @ w`` per instance: A (B, m, n) f32 or bf16, w (B, n) f32 ->
-    (B, m) f32."""
+def a_matvec(A: torch.Tensor, w: torch.Tensor,
+             square: bool = False) -> torch.Tensor:
+    """``A @ w`` per instance, or ``(A * A) @ w`` with ``square=True``:
+    A (B, m, n) f32 or bf16, w (B, n) f32 -> (B, m) f32."""
     _check_A(A)
     _check_vec("w", w, A, A.shape[2])
     if not A.is_cuda:
-        return a_matvec_plain(A, w)
-    return _launch("a_matvec", 1, A, None, None, None, w)[0]
+        return a_matvec_plain(A, w, square)
+    return _launch("a_matvec", 3 if square else 1, A, None, None, None, w)[0]
 
 
 def at_matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -4,17 +4,21 @@ Per Mehrotra iteration the KKT system is reduced to
 
     (A D^2 A^T + reg I) dy = rhs,   D^2 = diag(x/s)
 
-Assembly forms the lower triangle only; the Jacobi-scaled regularized matrix
-is factored by the library Cholesky (``chol_backend="xla"``); the factor is
-reused for the predictor and corrector solves, each a preconditioned CG
-whose operator is applied matrix-free through A.  Every tensor has a leading
-batch dimension.
+Assembly forms the lower triangle only.  The Jacobi-scaled regularized
+matrix is factored either by the library Cholesky (``chol_backend="xla"``)
+or by the panel-major factor of ``kernels.cholesky``
+(``chol_backend="pallas_left"``), which for a 128-aligned bf16-stored A
+assembles the matrix inside the factor kernels and never writes it.  The
+factor is reused for the predictor and corrector solves, each a
+preconditioned CG whose operator is applied matrix-free through A.  Every
+tensor has a leading batch dimension.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
@@ -31,11 +35,22 @@ class NormalEqFactor:
     basic-vs-nonbasic scale disparity, so the factored matrix has unit
     diagonal: the Cholesky stays stable far deeper into the ill-conditioned
     endgame, and ``reg`` is meaningfully relative to 1.
+
+    With ``chol_backend="pallas_left"`` the factor is panel-major: ``LTp``
+    holds suffix-only rows of L^T of the matrix padded to a multiple of 128
+    by an identity block, ``W`` the inverses of L's diagonal blocks (which
+    turn the triangular solves into products), and ``L`` is empty.
     """
-    L: torch.Tensor     # (B, m, m) lower-triangular factor
+    L: torch.Tensor     # xla: (B, m, m) lower-triangular factor; empty for
+                        # pallas_left
     j: torch.Tensor     # (B, m) Jacobi scale 1/sqrt(diag M)
     d2: torch.Tensor    # (B, n)
     ok: torch.Tensor    # (B,) bool: factorization succeeded per instance
+    W: torch.Tensor | None = None   # pallas_left: (B, m_pad/128, 128, 128)
+    LTp: tuple = ()     # pallas_left: LTp[k] (B, 128, m_pad - 128 k), rows
+                        # 128 k .. 128 (k+1) of L^T from the diagonal on;
+                        # m_pad (m_pad + 128) / 2 entries an instance, no
+                        # (m, m) factor exists
 
 
 def assemble(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -83,6 +98,8 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
     ((B,) tensor or float) is the per-lane escalation factor
     (``IPMState.reg_boost``) raised after a non-finite step.
     """
+    if opts.chol_backend == "pallas_left":
+        return _factor_pallas_left(A, d2, opts, reg_scale)
     M = assemble(A, d2)
     m = M.shape[-1]
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
@@ -113,6 +130,61 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
     return NormalEqFactor(L=L, j=j, d2=d2, ok=ok)
 
 
+def _factor_pallas_left(A: torch.Tensor, d2: torch.Tensor,
+                        opts: SolverOptions, reg_scale) -> NormalEqFactor:
+    """``factor`` on the panel-major route (float32 only).
+
+    A 128-aligned bf16-stored A takes the fused assemble + factor: the
+    Jacobi scale comes from diag(M) = (A o A) d2, one stream of A, and the
+    scaled regularized matrix is assembled panel by panel inside the factor
+    kernels.  Any other A is assembled, scaled and regularized here, padded
+    to a multiple of 128 with an identity block (blkdiag(Ms, I) factors to
+    blkdiag(L, I), and a zero-padded right-hand side round-trips exactly),
+    and factored from the assembled matrix.
+    """
+    B, m, n = A.shape
+    m_pad = -(-m // pk.NB) * pk.NB
+    if m_pad > pk.MAX_M:
+        # refused here, before any factor work: the factor kernels would take
+        # it and the first preconditioner apply would not
+        raise ValueError(
+            f'chol_backend="pallas_left": m={m} (padded {m_pad}) exceeds '
+            f"{pk.MAX_M}, the most the pair-solve kernel holds in shared "
+            "memory (larger m needs a solve that tiles r and x: ROADMAP.md, "
+            'large single LP); use chol_backend="xla"')
+    f32 = torch.float32
+    tiny = torch.finfo(f32).tiny
+    d2f = d2.to(f32).contiguous()
+    reg = (opts.reg * torch.as_tensor(reg_scale, dtype=f32, device=A.device)
+           ).expand(B).contiguous()
+    if pk.fused_factor_fits(m, n, A.dtype):
+        diag = fk.a_matvec(A, d2f, square=True)
+        j = torch.rsqrt(torch.clamp(diag, min=tiny))
+        panels, W = pk.factor_fused_panels(A, d2f, j, reg)
+    else:
+        M = assemble(A, d2f).to(f32)
+        diag = torch.diagonal(M, dim1=-2, dim2=-1)
+        j = torch.rsqrt(torch.clamp(diag, min=tiny))
+        Ms = M * j.unsqueeze(2) * j.unsqueeze(1)
+        # reg I, added in place on the diagonal (M is this function's own)
+        torch.diagonal(Ms, dim1=-2, dim2=-1).add_(reg.unsqueeze(-1))
+        if m_pad != m:
+            Mp = torch.zeros(B, m_pad, m_pad, dtype=f32, device=A.device)
+            Mp[:, :m, :m] = Ms
+            torch.diagonal(Mp, dim1=-2, dim2=-1)[:, m:] = 1.0
+            Ms = Mp
+        panels, W = pk.factor_lt_panels(Ms)
+    ldiag = torch.cat([torch.diagonal(p[:, :, :pk.NB], dim1=-2, dim2=-1)
+                       for p in panels], dim=-1)
+    # a lane whose matrix is not positive definite shows here (the diagonal
+    # kernel never raises); its panels are garbage of its own, no other
+    # lane reads them
+    ok = (torch.isfinite(ldiag).all(-1) & (ldiag > 0).all(-1)
+          & torch.isfinite(j).all(-1))
+    return NormalEqFactor(L=torch.zeros(0, dtype=f32, device=A.device), j=j,
+                          d2=d2, ok=ok, W=W, LTp=panels)
+
+
 def use_fused_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
     """Whether A's products go through ``kernels.fused``: asked for by
     ``matvec_backend``, A stored f32 or bf16, dense route.  The shape plays
@@ -126,6 +198,11 @@ def use_fused_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
 
 
 def _chol_solve(fac: NormalEqFactor, rhs: torch.Tensor) -> torch.Tensor:
+    if fac.LTp:
+        m, m_pad = rhs.shape[-1], fac.LTp[0].shape[-1]
+        r = rhs if m_pad == m else F.pad(rhs, (0, m_pad - m))
+        y = pk.chol_solve_batched_panels(fac.LTp, fac.W, r.contiguous())
+        return y[:, :m]
     t = torch.linalg.solve_triangular(fac.L, rhs.unsqueeze(-1), upper=False)
     return torch.linalg.solve_triangular(fac.L.mT, t, upper=True).squeeze(-1)
 

@@ -94,8 +94,9 @@ class SolverOptions:
     # Retry a STALLED / failed dense-route solve with the augmented system.
     augmented_fallback: bool = True
     # "xla" names the library Cholesky (torch.linalg.cholesky_ex and two
-    # triangular solves); the other names are the hand-kernel factor
-    # backends of ``ipx``.
+    # triangular solves); "pallas_left" the panel-major factor and
+    # pair-solve kernels of ``ipx_torch.kernels.cholesky``; the other names
+    # are factor backends of ``ipx`` that this package does not carry yet.
     chol_backend: str = "xla"
     # "fused" evaluates the matrix-free normal operator and the KKT
     # refinement right-hand sides with the one-stream kernels of
@@ -153,8 +154,7 @@ class SolverOptions:
         (``pallas_left``), fused one-stream matvecs, one CG refinement per
         solve, direct (CG-less) feasibility projection and refinement-sweep
         solves.  Not the default: degenerate or badly scaled instances need
-        the robust settings.  Keyword overrides are applied on top; this
-        package runs it today with ``chol_backend="xla"``.
+        the robust settings.  Keyword overrides are applied on top.
         """
         base = dict(dtype="float32", chol_backend="pallas_left",
                     matvec_backend="fused", refine_steps=1,
@@ -176,11 +176,11 @@ def check_ported(opts: SolverOptions) -> None:
         raise NotImplementedError(
             f"linsys={opts.linsys!r} is not ported yet (ROADMAP.md: rescue "
             "ladder for 'augmented*', large single LP for 'sharded*')")
-    if opts.chol_backend != "xla":
+    if opts.chol_backend not in ("xla", "pallas_left"):
         raise NotImplementedError(
             f"chol_backend={opts.chol_backend!r} is not ported yet "
-            "(ROADMAP.md: 'pallas_left' is the next slice, the other factor "
-            "backends follow with their kernels); use chol_backend='xla'")
+            "(ROADMAP.md: kernel rows 8-11 with the factor backends that "
+            "call them); use chol_backend='pallas_left' or 'xla'")
     if opts.refactor_period > 1:
         raise NotImplementedError(
             "refactor_period > 1 is not ported yet (ROADMAP.md: "

@@ -8,7 +8,12 @@ a list of variants and prints one JSON line per variant with the status
 counts, the OPTIMAL count per 16 lanes and the quartiles of the best-iterate
 gap:
 
-  baseline            the slice's options, this package's kernels
+  baseline            throughput options on the library Cholesky
+                      (chol_backend="xla"), this package's kernels
+  pallas_left         the same lanes under throughput() as it stands: the
+                      panel-major factor and pair-solve kernels
+  pallas_left/plain   that route with its factor and solve kernels replaced
+                      by their plain versions (float32 library sums)
   plain_kernels       the four kernel wrappers replaced by their plain versions
   chol_f64+trsm_f64   library factor and triangular solves done in float64
   asm_f64, matvec_f64, asm_f64+matvec_f64   the assembly / the A products
@@ -23,8 +28,14 @@ gap:
                       16), on the card and on the host's CPU (plain versions),
                       for a like-for-like pair
 
-The variants patch module attributes for the length of one run; nothing of
-the package depends on this file.  Needs a CUDA device.
+``--routes-only`` stops after the first three (the two factor routes side
+by side).  ``--alone K`` then solves the first K lanes that the kernel route
+left short of OPTIMAL in the batch and its first K OPTIMAL lanes each as a
+batch of one on both routes, prints one line per lane with its four ends
+(batch and alone, either route) and a summary: how often a lane alone ends
+as it did in the batch, and how the two routes compare alone.  The variants
+patch module attributes for the length of one run; nothing of the package
+depends on this file.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -78,6 +89,49 @@ def report(tag: str, sols) -> None:
     }), flush=True)
 
 
+def alone(lp, routes: dict, batch_sols: dict, k: int) -> None:
+    """Lanes of ``lp`` solved as batches of one on each route of ``routes``
+    (name -> options), beside what ``batch_sols`` (name -> solutions of the
+    whole batch) made of them."""
+    ref = batch_sols["pallas_left"]
+    stalled = [i for i, s in enumerate(ref) if not s.optimal][:k]
+    optimal = [i for i, s in enumerate(ref) if s.optimal][:k]
+    end = lambda s: {"status": s.status_name, "rel_gap": s.rel_gap,
+                     "iterations": s.iterations}
+    rows = []
+    for kind, lanes in (("stalled_in_batch", stalled),
+                        ("optimal_in_batch", optimal)):
+        for i in lanes:
+            cut = lambda t: t[i:i + 1].contiguous()
+            one = LP(c=cut(lp.c), A=cut(lp.A), b=cut(lp.b),
+                     obj_offset=cut(lp.obj_offset))
+            row = {"lane": i, "kind": kind}
+            for name, o in routes.items():
+                row[f"batch/{name}"] = end(batch_sols[name][i])
+                row[f"alone/{name}"] = end(
+                    ipx_torch.solve_batch(one, options=o)[0])
+            rows.append(row)
+            print(json.dumps({"variant": "alone", **row}), flush=True)
+    summary = {"variant": "alone/summary", "k": k}
+    for kind in ("stalled_in_batch", "optimal_in_batch"):
+        sel = [r for r in rows if r["kind"] == kind]
+        gaps = lambda key: [r[key]["rel_gap"] for r in sel]
+        summary[kind] = {
+            "lanes": len(sel),
+            **{f"optimal_{key}": sum(r[key]["status"] == "OPTIMAL"
+                                     for r in sel)
+               for key in ("batch/pallas_left", "batch/xla",
+                           "alone/pallas_left", "alone/xla")},
+            "alone_gap_pallas_left": sorted(gaps("alone/pallas_left")),
+            "alone_gap_xla": sorted(gaps("alone/xla")),
+            # per lane: the kernel route's end alone over the library's
+            "alone_gap_ratio_left_over_xla": sorted(
+                a / b for a, b in zip(gaps("alone/pallas_left"),
+                                      gaps("alone/xla"))),
+        }
+    print(json.dumps(summary), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=64)
@@ -86,6 +140,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu-lanes", type=int, default=16,
                     help="lanes of the card-against-CPU pair (0: skip it)")
+    ap.add_argument("--routes-only", action="store_true",
+                    help="only baseline, pallas_left, pallas_left/plain")
+    ap.add_argument("--alone", type=int, default=0, metavar="K",
+                    help="solve K stalled and K OPTIMAL lanes as batches of "
+                         "one on both routes (0: skip)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("norescue_gpu: no CUDA device\n")
@@ -101,7 +160,23 @@ def main() -> int:
                                       a_storage="bfloat16").lp
     run = lambda o=opts, p=lp: ipx_torch.solve_batch(p, options=o)
 
-    report("baseline", run())
+    batch_sols = {"xla": run()}
+    report("baseline", batch_sols["xla"])
+
+    left = opts.replace(chol_backend="pallas_left")
+    batch_sols["pallas_left"] = run(left)
+    report("pallas_left", batch_sols["pallas_left"])
+    if args.alone > 0:
+        alone(lp, {"pallas_left": left, "xla": opts}, batch_sols, args.alone)
+    saved = (pk.factor_fused_panels, pk.chol_solve_batched_panels)
+    pk.factor_fused_panels = pk.factor_fused_panels_plain
+    pk.chol_solve_batched_panels = pk.chol_solve_batched_panels_plain
+    try:
+        report("pallas_left/plain", run(left))
+    finally:
+        pk.factor_fused_panels, pk.chol_solve_batched_panels = saved
+    if args.routes_only:
+        return 0
 
     kernels = (fk.ata_apply, fk.a_matvec, fk.at_matvec,
                pk.assemble_sym_batched)

@@ -2,9 +2,11 @@
 
     python3 probes/profile_iter.py [--batch 256] [--m 1024] [--n 2048]
 
-Times the stages of the main path's iteration (bf16-stored A, fused matvecs,
-library Cholesky) with CUDA events at a mid-solve iterate, then traces a few
-whole steps with ``torch.profiler`` for the device time by kernel name, the
+Times the stages of the main path's iteration (bf16-stored A, fused matvecs)
+with CUDA events at a mid-solve iterate on both factor routes: the
+panel-major kernels (``chol_backend="pallas_left"``, what ``throughput()``
+names) and the library Cholesky (``"xla"``).  Then traces a few whole steps
+of each route with ``torch.profiler`` for the device time by kernel name, the
 number of device kernels per step and the share of the step during which the
 device is idle (launch overhead of the eager step).  One JSON line per
 result; the card's name and power limit are in the first.  Needs a CUDA
@@ -46,65 +48,122 @@ def main() -> int:
                       "batch": args.batch, "m": args.m, "n": args.n}),
           flush=True)
 
-    opts = ipx_torch.SolverOptions.throughput(
-        chol_backend="xla", a_storage="bfloat16", augmented_fallback=False,
-        max_iter=64)
+    left = ipx_torch.SolverOptions.throughput(
+        a_storage="bfloat16", augmented_fallback=False, max_iter=64)
+    xla = left.replace(chol_backend="xla")
     gen = torch.Generator(device="cuda").manual_seed(0)
     gb = random_feasible_batch_device(args.batch, args.m, args.n, gen,
                                       a_storage="bfloat16")
     lp = gb.lp
-    st, fac_aat = batched.batch_starting_state(lp, opts)
+    st, fac_aat = batched.batch_starting_state(lp, left)
     for _ in range(args.warm_steps):
-        st = mehrotra.step_masked(lp, st, opts, fac_aat)
-    A, d2 = lp.A, st.x / st.s
-    fac = normal_eq.factor(A, d2, opts, reg_scale=st.reg_boost)
-    M = normal_eq.assemble(A, d2)
-    Ms = (M * fac.j.unsqueeze(2) * fac.j.unsqueeze(1)
-          + 1e-8 * torch.eye(args.m, device="cuda"))
+        st = mehrotra.step_masked(lp, st, left, fac_aat)
+    _, fac_aat_xla = batched.batch_starting_state(lp, xla)
+    A, d2 = lp.A, (st.x / st.s).contiguous()
     rhs = st.rp.clone()
+    B, m = args.batch, args.m
+    NB, nb = pk.NB, args.m // pk.NB
 
+    # ---- the kernel route, stage by stage ------------------------------------
+    fac = normal_eq.factor(A, d2, left, reg_scale=st.reg_boost)
+    reg = (left.reg * st.reg_boost).contiguous()
+    scratch = torch.empty(B * NB * m, device="cuda")
+    CD = fac.LTp[0][:, :, :NB].mT.matmul(fac.LTp[0][:, :, :NB]).contiguous()
+
+    def panel_stages():
+        rows = pk._fused_panel_rows(A, d2, fac.j, reg)
+        for k in range(nb):
+            w = m - k * NB
+            rows(k, fac.LTp[:k], scratch[:B * NB * w].view(B, NB, w))
+
+    dst = torch.empty(B * NB * m, device="cuda")
+
+    def panel_trsms():
+        for k in range(nb - 1):
+            w = m - k * NB
+            C = scratch[:B * NB * w].view(B, NB, w)
+            torch.bmm(fac.W[:, k], C[:, :, NB:],
+                      out=dst[:B * NB * (w - NB)].view(B, NB, w - NB))
+
+    stages = {
+        "jacobi_diag_squared_a_matvec": lambda: fk.a_matvec(A, d2, square=True),
+        "fused_panel_stages_x8": panel_stages,
+        "diag_factor_inv_x1": lambda: pk.diag_factor_inv(CD),
+        "factor_whole": lambda: normal_eq.factor(A, d2, left),
+        "chol_solve_batched_panels": lambda: normal_eq._chol_solve(fac, rhs),
+        "ata_apply": lambda: fk.ata_apply(A, rhs, d2, None),
+        "solve_cg1": lambda: normal_eq.solve(fac, A, rhs, left),
+        "panel_trsm_bmm_x7": panel_trsms,
+        "mehrotra_step": lambda: mehrotra.mehrotra_step(lp, st, left, fac_aat),
+    }
+    out = {k: time_ms(f, reps=5, warm=1) for k, f in stages.items()}
+    print(json.dumps({"route": "pallas_left", "stage_ms": out}), flush=True)
+    del fac, scratch, dst, CD
+
+    # ---- the library route ---------------------------------------------------
+    facx = normal_eq.factor(A, d2, xla, reg_scale=st.reg_boost)
+    M = normal_eq.assemble(A, d2)
+    Ms = (M * facx.j.unsqueeze(2) * facx.j.unsqueeze(1)
+          + 1e-8 * torch.eye(args.m, device="cuda"))
+    LT = facx.L.mT.contiguous()
+    r3 = rhs.unsqueeze(-1)
     stages = {
         "assemble_sym_batched": lambda: pk.assemble_sym_batched(A, d2),
         "jacobi_scale_and_reg": lambda: (
-            M * fac.j.unsqueeze(2) * fac.j.unsqueeze(1)
+            M * facx.j.unsqueeze(2) * facx.j.unsqueeze(1)
             + 1e-8 * torch.eye(args.m, device="cuda")),
         "cholesky_ex": lambda: torch.linalg.cholesky_ex(
             Ms, check_errors=False),
-        "factor_whole": lambda: normal_eq.factor(A, d2, opts),
-        "chol_solve_two_trsm": lambda: normal_eq._chol_solve(fac, rhs),
-        "ata_apply": lambda: fk.ata_apply(A, rhs, d2, None),
-        "solve_cg1": lambda: normal_eq.solve(fac, A, rhs, opts),
-        "mehrotra_step": lambda: mehrotra.mehrotra_step(lp, st, opts, fac_aat),
+        "factor_whole": lambda: normal_eq.factor(A, d2, xla),
+        "chol_solve_two_trsm": lambda: normal_eq._chol_solve(facx, rhs),
+        # the same apply with L^T laid out contiguously, and as the one
+        # library call that computes it
+        "two_trsm_contiguous_lt": lambda: torch.linalg.solve_triangular(
+            LT, torch.linalg.solve_triangular(facx.L, r3, upper=False),
+            upper=True),
+        "torch_cholesky_solve": lambda: torch.cholesky_solve(r3, facx.L),
+        "solve_cg1": lambda: normal_eq.solve(facx, A, rhs, xla),
+        "mehrotra_step": lambda: mehrotra.mehrotra_step(lp, st, xla,
+                                                        fac_aat_xla),
     }
-    print(json.dumps({"stage_ms": {k: time_ms(f, reps=5, warm=1) for k, f in stages.items()}}),
-          flush=True)
+    out = {k: time_ms(f, reps=5, warm=2) for k, f in stages.items()}
+    # one apply inside a run of twenty, back to back as in a step
+    out["chol_solve_two_trsm_of_20"] = time_ms(
+        lambda: [normal_eq._chol_solve(facx, rhs) for _ in range(20)],
+        reps=3, warm=1) / 20
+    print(json.dumps({"route": "xla", "stage_ms": out}), flush=True)
+    del M, Ms, LT
 
     # whole steps under the profiler: device time by kernel, kernels per
     # step, idle share
     from torch.profiler import ProfilerActivity, profile
     steps = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s2 = st
-        for _ in range(steps):
-            s2 = mehrotra.mehrotra_step(lp, s2, opts, fac_aat)
+    for route, opts, faat in (("pallas_left", left, fac_aat),
+                              ("xla", xla, fac_aat_xla)):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0) > 0
-            and e.device_type.name == "CUDA"]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    print(json.dumps({
-        "profiled_steps": steps, "wall_ms_per_step": wall_ms / steps,
-        "device_busy_ms_per_step": busy_ms / steps if rows else None,
-        "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
-        "device_kernels_per_step": sum(r[2] for r in rows) / steps,
-        "top_kernels_ms_per_step": [
-            {"name": k[:80], "ms": ms / steps, "calls": c / steps}
-            for k, ms, c in rows[:14]]}), flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s2 = st
+            for _ in range(steps):
+                s2 = mehrotra.mehrotra_step(lp, s2, opts, faat)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0) > 0
+                and e.device_type.name == "CUDA"]
+        rows.sort(key=lambda r: -r[1])
+        busy_ms = sum(r[1] for r in rows)
+        print(json.dumps({
+            "route": route, "profiled_steps": steps,
+            "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps if rows else None,
+            "device_idle_share": (1 - busy_ms / wall_ms) if rows else None,
+            "device_kernels_per_step": sum(r[2] for r in rows) / steps,
+            "top_kernels_ms_per_step": [
+                {"name": k[:80], "ms": ms / steps, "calls": c / steps}
+                for k, ms, c in rows[:14]]}), flush=True)
     return 0
 
 

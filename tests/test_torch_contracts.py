@@ -84,7 +84,8 @@ def _tiny_lp():
 
 NOT_PORTED = [
     dict(linsys="augmented"), dict(linsys="augmented_schur"),
-    dict(linsys="sharded"), dict(chol_backend="pallas_left"),
+    dict(linsys="sharded"), dict(chol_backend="pallas"),
+    dict(chol_backend="blocked"), dict(chol_backend="blocked_left"),
     dict(chol_backend="panels"), dict(chol_backend="hybrid"),
     dict(refactor_period=2), dict(cg_operator="assembled"),
     dict(dtype="bfloat16"), dict(augmented_fallback=True),
@@ -108,11 +109,11 @@ def test_presolve_and_default_fallback_are_refused():
         ipx_torch.solve(_tiny_lp(), options=ok, device="cpu")
     with pytest.raises(NotImplementedError, match="augmented_fallback"):
         ipx_torch.solve(_tiny_lp(), presolve=False, device="cpu")
-    # throughput() as it stands names pallas_left: valid options, refused run
+    # throughput() as it stands names pallas_left, and runs
     unchanged = ipx_torch.SolverOptions.throughput(augmented_fallback=False)
-    with pytest.raises(NotImplementedError, match="pallas_left"):
-        ipx_torch.solve_batch([_tiny_lp()], device="cpu",
-                              options=unchanged)
+    assert unchanged.chol_backend == "pallas_left"
+    sol, = ipx_torch.solve_batch([_tiny_lp()], device="cpu", options=unchanged)
+    assert sol.optimal and abs(sol.objective - 1.0) <= 1e-5
 
 
 def test_tiny_lp_solves():
@@ -130,6 +131,7 @@ BAD_CALLS = [
     ("a_matvec f64 w", lambda: tfk.a_matvec(A, W.double()), TypeError),
     ("a_matvec shape", lambda: tfk.a_matvec(A, V), ValueError),
     ("a_matvec rank", lambda: tfk.a_matvec(A[0], W[0]), ValueError),
+    ("a_matvec squared shape", lambda: tfk.a_matvec(A, V, square=True), ValueError),
     ("at_matvec shape", lambda: tfk.at_matvec(A, W), ValueError),
     ("at_matvec dtype", lambda: tfk.at_matvec(A, V.to(torch.bfloat16)), TypeError),
     ("ata alpha shape", lambda: tfk.ata_apply(A, V, V, W), ValueError),
