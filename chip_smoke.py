@@ -9,12 +9,17 @@ shapes (m=1024, n=2048), times each beside its bound, then drives the paths
 through the public entry points: ``ipx_torch.solve_batch`` on B=256 distinct
 bf16-stored instances under ``SolverOptions.throughput()`` as it stands
 (``chol_backend="pallas_left"``: fused assemble+factor panels, diagonal
-factor, panel pair-solve, one-stream matvecs), the same options on the
-library Cholesky (``chol_backend="xla"``) at B=64, a batch whose m = 1000 is
-off the 128 grid (assembled, padded route), an f64 oracle solve on the card,
-twelve lanes solved alone, and the fixed-iteration rate of both factor
+factor, panel pair-solve, one-stream matvecs), the same batch under
+``chol_backend="pallas"`` (assembled matrix, right-looking kernel factor,
+full-L^T pair-solve), the same options on the library Cholesky
+(``chol_backend="xla"``) and on ``"blocked_left"``, ``"blocked"``,
+``"hybrid"``, ``"panels"`` and ``cg_operator="assembled"`` at B=64, two
+batches whose m = 1000 is off the 128 grid (padded routes), the kernel
+module's own factor-then-solve paths at B=256, an f64 oracle solve on the
+card, twelve lanes solved alone, and the fixed-iteration rate of three factor
 routes.
-Every phase prints one JSON line; any failure exits non-zero.  Needs a CUDA
+Every phase prints one JSON line, and a line with its seconds; any failure
+exits non-zero.  Needs a CUDA
 device: without one it exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -82,14 +87,37 @@ TOL_PADDED_BACKWARD = 3e-5
 TOL_DIAG_INVERSE = 2e-6
 TOL_DIAG_INVERSE_ILL = 3e-5
 TOL_DIAG_FACTOR = 2e-6
+# The full-matrix factors (same inputs, B = 8) share the panel factors'
+# limits above: against the f64 factor [cholesky_batched 4.6e-5,
+# factor_lt_batched 5.8e-5; the plain versions 6.6e-5, 6.4e-5], against their
+# plain versions [6.4e-5, 7.7e-5], ||L L^T - Ms|| / ||Ms|| [7.3e-7, 8.3e-7],
+# ||W L - I|| [2.4e-7].  So do their solves: the pair-solve from a full L^T
+# against an f64 solve with the same factor [3.2e-4; plain 1.8e-3], backward
+# error [3.7e-7]; two one-sweep solves [3.2e-4; plain 2.9e-3], [3.8e-7]; the
+# lower sweep alone [9.6e-7; plain 1.3e-5]; m = 4864, one instance, backward
+# error against the f32 matrix [2.2e-7, 2.1e-7].
+# factor_lt_batched against factor_lt_panels on the same matrix: panel 0's
+# diagonal tile and W_0 bit for bit, the rest to rounding (another product
+# behind the panel TRSM), relative to the factor's largest entry [4.6e-5]
+TOL_LT_VS_PANELS = 4e-4
+# the pair-solve from L^T against two one-sweep solves from L, same factor,
+# relative to the solution's largest entry [5.9e-6]
+TOL_TWO_SWEEPS = 5e-5
+# kernel_api at B = 256: backward error of the two factor-then-solve paths
+# against the f32 matrix they factored [3.5e-6, 2.8e-6], and their solutions
+# against an f64 factor and solve of it, relative to the largest entry
+# [1.5e-2, 1.0e-2: condition x eps on these mid-solve matrices]
+TOL_API_BACKWARD = 3e-5
+TOL_API_FORWARD = 1e-1
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS = 67e12                   # H100 SXM, float32 outside tensor cores
 DEV = "cuda"
 # Without the rescue ladder (not ported yet) a float32 lane may stop short
 # of OPTIMAL; at least half of the batch has to get there (measured on an
-# H100 with these seeds: 203 of 256 on the kernel route, 49 of 64 on the
-# library route, 11 of 16 at m = 1000), and every OPTIMAL lane is held to
-# the full contract.
+# H100 with these seeds: 203 of 256 on the kernel route, 202 of 256 on
+# "pallas", 49 of 64 on the library route, 45 to 54 of 64 on the other
+# backends, 11 of 16 at m = 1000), and every OPTIMAL lane is held to the full
+# contract.
 MIN_OPTIMAL_SHARE = 0.5
 # A lane solved alone goes through the same code as in the batch, and the
 # kernels give it the same bits at any batch size (phase ``panel_kernels``
@@ -121,7 +149,8 @@ NEAR_MISS_GAP = 1e-5
 EARLY_ITERS = 6
 EARLY_TOL = 1e-3
 
-B_XLA = 64          # batch of the library-Cholesky path
+B_XLA = 64          # batch of the library-Cholesky path and of the backends
+                    # that share the pair-solve kernels with the wide paths
 B_PADDED = 16       # batch of the padded path
 M_PADDED = 1000     # its m, off the 128 grid
 
@@ -141,15 +170,36 @@ KERNELS = {
                                   "ipx/kernels/cholesky.py:1219"),
     "factor_lt_panels": ("ipx_torch/csrc/factor_panels.cu",
                          "ipx/kernels/cholesky.py:1093"),
+    "chol_solve_batched_lt": ("ipx_torch/csrc/solve_panels.cu",
+                              "ipx/kernels/cholesky.py:640"),
+    "cholesky_batched": ("ipx_torch/csrc/cholesky_right.cu",
+                         "ipx/kernels/cholesky.py:285"),
+    "factor_lt_batched": ("ipx_torch/csrc/factor_panels.cu",
+                          "ipx/kernels/cholesky.py:900"),
+    "solve_triangular_batched": ("ipx_torch/csrc/solve_panels.cu",
+                                 "ipx/kernels/cholesky.py:469"),
 }
+LT_KERNELS = ("chol_solve_batched_lt", "cholesky_batched",
+              "factor_lt_batched", "solve_triangular_batched")
+_MATVECS = ("ata_apply", "a_matvec", "at_matvec")
+_ASSEMBLED = _MATVECS + ("assemble_sym_batched",)
+_RIGHT = _ASSEMBLED + ("diag_factor_inv", "cholesky_batched",
+                       "chol_solve_batched_lt")
 # which kernels each driven path must launch
 PATH_KERNELS = {
-    "pallas_left": ("ata_apply", "a_matvec", "at_matvec", "factor_fused_panels",
-                    "diag_factor_inv", "chol_solve_batched_panels"),
-    "xla": ("ata_apply", "a_matvec", "at_matvec", "assemble_sym_batched"),
-    "padded": ("ata_apply", "a_matvec", "at_matvec", "assemble_sym_batched",
-               "factor_lt_panels", "diag_factor_inv",
-               "chol_solve_batched_panels"),
+    "pallas_left": _MATVECS + ("factor_fused_panels", "diag_factor_inv",
+                               "chol_solve_batched_panels"),
+    "pallas": _RIGHT,
+    "xla": _ASSEMBLED,
+    "padded": _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
+                            "chol_solve_batched_panels"),
+    "blocked_left": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
+    "blocked": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
+    "hybrid": _ASSEMBLED + ("chol_solve_batched_lt",),
+    "panels": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_panels"),
+    "assembled": _RIGHT,
+    "padded_lt": _RIGHT,
+    "kernel_api": LT_KERNELS + ("diag_factor_inv",),
 }
 
 
@@ -448,34 +498,39 @@ def _mx(t: torch.Tensor) -> float:
     return float(t.abs().max())
 
 
-def _check_factor(label, got, plain, Ms64, checks) -> float:
-    """Panels and W of a kernel factor against the plain version's and the
-    f64 Cholesky of Ms64; returns the largest |kernel - plain|."""
-    (pg, Wg), (pp, Wp) = got, plain
+def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks) -> float:
+    """A kernel factor as (LT (B, m, m) = L^T, W) against the plain version's
+    LT and the f64 Cholesky of Ms64; returns the largest |kernel - plain|."""
     L64 = torch.linalg.cholesky(Ms64)
     scale = _mx(L64)
-    LTg = _lt_of(pg)
     if not bool(torch.isfinite(LTg).all()) or not bool(torch.isfinite(Wg).all()):
-        fail("panel_kernels", f"{label}: non-finite factor")
+        fail(phase, f"{label}: non-finite factor")
+    LTg, LTp = LTg.double(), LTp.double()
     vs_f64 = _mx(LTg - L64.mT) / scale
-    plain_vs_f64 = _mx(_lt_of(pp) - L64.mT) / scale
-    vs_plain = max(_mx(a - b) for a, b in zip(pg, pp)) / scale
+    plain_vs_f64 = _mx(LTp - L64.mT) / scale
+    abs_plain = _mx(LTg - LTp)
     rec = _mx(torch.matmul(LTg.mT, LTg) - Ms64) / _mx(Ms64)
-    nbk = len(pg)
     eye = torch.eye(NB, dtype=torch.float64, device=DEV)
     winv = max(_mx(torch.matmul(Wg[:, k].double(),
                                 LTg[:, k * NB:(k + 1) * NB,
                                     k * NB:(k + 1) * NB].mT) - eye)
-               for k in range(nbk))
+               for k in range(Wg.shape[1]))
     checks[label] = {"rel_err_vs_f64": vs_f64, "plain_vs_f64": plain_vs_f64,
-                     "rel_err_vs_plain": vs_plain, "reconstruction": rec,
-                     "w_l_minus_i": winv}
-    if vs_f64 > TOL_PANELS_F64 or vs_plain > TOL_PANELS_PLAIN \
+                     "rel_err_vs_plain": abs_plain / scale,
+                     "reconstruction": rec, "w_l_minus_i": winv}
+    if vs_f64 > TOL_PANELS_F64 or abs_plain / scale > TOL_PANELS_PLAIN \
             or rec > TOL_RECONSTRUCT or winv > TOL_DIAG_INVERSE:
-        fail("panel_kernels", f"{label}: {checks[label]} (tolerances "
+        fail(phase, f"{label}: {checks[label]} (tolerances "
              f"{TOL_PANELS_F64}, {TOL_PANELS_PLAIN}, {TOL_RECONSTRUCT}, "
              f"{TOL_DIAG_INVERSE})")
-    return max(_mx(a - b) for a, b in zip(pg, pp))
+    return abs_plain
+
+
+def _check_factor(label, got, plain, Ms64, checks) -> float:
+    """Panels and W of a kernel factor against the plain version's and the
+    f64 Cholesky of Ms64; returns the largest |kernel - plain|."""
+    return _check_lt("panel_kernels", label, _lt_of(got[0]), got[1],
+                     _lt_of(plain[0]), Ms64, checks)
 
 
 def _ill_conditioned_block() -> torch.Tensor:
@@ -509,13 +564,11 @@ def _check_diag(label, CD, tol_inv, checks) -> float:
     return _mx(LT - LTp)
 
 
-def _check_solve(label, panels, W, b, checks) -> float:
-    x = pk.chol_solve_batched_panels(panels, W, b)
-    xp = pk.chol_solve_batched_panels_plain(panels, W, b)
+def _check_pair_solve(phase, label, x, xp, LT, b, checks) -> float:
+    """A pair-solve's x and its plain version's xp against an f64 solve WITH
+    THE SAME f32 FACTOR LT (f64 copy of L^T): the kernel's own error, apart
+    from the factor's.  Returns the largest |kernel - plain|."""
     torch.cuda.synchronize()
-    # f64 solve with the SAME f32 factor: the kernel's own error, apart from
-    # the factor's
-    LT = _lt_of(panels)
     t = torch.linalg.solve_triangular(LT.mT, b.double().unsqueeze(-1),
                                       upper=False)
     x64 = torch.linalg.solve_triangular(LT, t, upper=True).squeeze(-1)
@@ -528,13 +581,20 @@ def _check_solve(label, panels, W, b, checks) -> float:
            "backward_error": back}
     checks[label] = res
     if not bool(torch.isfinite(x).all()) or tuple(x.shape) != tuple(b.shape):
-        fail("panel_kernels", f"{label}: bad shape or non-finite")
+        fail(phase, f"{label}: bad shape or non-finite")
     if res["rel_err_vs_f64"] > TOL_SOLVE_F64 \
             or res["rel_err_vs_plain"] > TOL_SOLVE_PLAIN \
             or back > TOL_SOLVE_BACKWARD:
-        fail("panel_kernels", f"{label}: {res} (tolerances {TOL_SOLVE_F64}, "
+        fail(phase, f"{label}: {res} (tolerances {TOL_SOLVE_F64}, "
              f"{TOL_SOLVE_PLAIN}, {TOL_SOLVE_BACKWARD})")
     return _mx(x - xp)
+
+
+def _check_solve(label, panels, W, b, checks) -> float:
+    return _check_pair_solve(
+        "panel_kernels", label, pk.chol_solve_batched_panels(panels, W, b),
+        pk.chol_solve_batched_panels_plain(panels, W, b), _lt_of(panels), b,
+        checks)
 
 
 def _panel_bounds(B: int) -> dict:
@@ -562,6 +622,16 @@ def _panel_bounds(B: int) -> dict:
         "diag_factor_inv": (3 * 4 * B * NB * NB, 2 * B * 2 * NB ** 3 // 6),
         "chol_solve_batched_panels": (factor_io + 2 * 4 * B * m,
                                       2 * 2 * (factor_io // 4)),
+        # the same function from a full L^T: the strict block triangle and W
+        # are all it needs of it
+        "chol_solve_batched_lt": (factor_io + 2 * 4 * B * m,
+                                  2 * 2 * (factor_io // 4)),
+        # one sweep: the same bytes, each met once
+        "solve_triangular_batched": (factor_io + 2 * 4 * B * m,
+                                     2 * (factor_io // 4)),
+        # the block lower triangle of M in, of the factor out, and W
+        "cholesky_batched": (2 * panels + w_out, 2 * B * chol),
+        "factor_lt_batched": (2 * panels + w_out, 2 * B * chol),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -748,6 +818,312 @@ def phase_panel_kernels(rows: dict) -> None:
          kernels=[rows[k] for k in checks])
 
 
+# --------------------------------------------------------------------------
+# the factors and solves over a full (B, m, m) matrix
+# --------------------------------------------------------------------------
+
+def _lanes_bitwise(phase, name, call, args, full) -> None:
+    """``call`` on the first 1 and 3 instances of ``args`` gives those lanes
+    the bits they have in ``full``, the result on the batch of 8."""
+    for Bs in (1, 3):
+        got = call(*(a[:Bs].contiguous() for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(torch.equal(g, f[:Bs]) for g, f in zip(got, full)):
+            fail(phase, f"{name} at B={Bs} differs from the same instances "
+                 "in a batch of 8")
+
+
+def _limit_checks(checks) -> str | None:
+    """m = MAX_M is taken by all four kernels (one instance, factor then
+    solve), m = MAX_M + 128 refused by each wrapper and by ``normal_eq.factor``
+    before any factor work.  Returns what went wrong, or None."""
+    m = pk.MAX_M
+    g = torch.Generator(device=DEV).manual_seed(5)
+    G = torch.randn(1, m, m, generator=g, device=DEV) / m ** 0.5
+    M = torch.matmul(G, G.mT)
+    M.diagonal(dim1=1, dim2=2).add_(1.0)
+    b = torch.randn(1, m, generator=g, device=DEV)
+    LT, W = pk.factor_lt_batched(M)
+    x = pk.chol_solve_batched_lt(LT, W, b)
+    L, W9 = pk.cholesky_batched(M)
+    x2 = pk.solve_triangular_batched(
+        L, W9, pk.solve_triangular_batched(L, W9, b, lower=True), lower=False)
+    torch.cuda.synchronize()
+    M64 = M.double()
+    back = [_mx(torch.matmul(M64, v.double().unsqueeze(-1)).squeeze(-1)
+                - b.double()) / (_mx(M64) * _mx(v)) for v in (x, x2)]
+    checks["chol_solve_batched_lt"][f"m{m}"] = {"backward_error": back[0]}
+    checks["solve_triangular_batched"][f"m{m}"] = {"backward_error": back[1]}
+    if not max(back) <= TOL_PADDED_BACKWARD:
+        return f"m={m}: backward errors {back}"
+    del G, M, M64, LT, L
+    big = m + NB
+    Z = torch.zeros(1, big, big, device=DEV)
+    Wz = torch.zeros(1, big // NB, NB, NB, device=DEV)
+    bz = torch.zeros(1, big, device=DEV)
+    before = counts()
+    attempts = {
+        "cholesky_batched": lambda: pk.cholesky_batched(Z),
+        "factor_lt_batched": lambda: pk.factor_lt_batched(Z),
+        "chol_solve_batched_lt": lambda: pk.chol_solve_batched_lt(Z, Wz, bz),
+        "solve_triangular_batched":
+            lambda: pk.solve_triangular_batched(Z, Wz, bz),
+        "normal_eq.factor": lambda: normal_eq.factor(
+            torch.zeros(1, big, NB, dtype=torch.bfloat16, device=DEV),
+            torch.ones(1, NB, device=DEV),
+            slice_options(chol_backend="pallas")),
+    }
+    for name, call in attempts.items():
+        try:
+            call()
+        except ValueError:
+            continue
+        return f"{name} took m={big} instead of refusing it"
+    return None if counts() == before else f"a refused m={big} launched"
+
+
+def phase_lt_kernels(rows: dict) -> None:
+    """The four kernels over a full (B, m, m) matrix against their plain
+    versions and f64 oracles at B_CHECK on the panel kernels' ill-conditioned
+    inputs, against the panel kernels on the same factor, at B = 1 and 3, at
+    the largest m and past it; then times at B_MAIN."""
+    phase = "lt_kernels"
+    checks = {name: rows[name]["checks"] for name in LT_KERNELS}
+    A, d2, j, reg = _panel_inputs(B_CHECK, seed=1)
+    Ms64 = _scaled_f64(A, d2, j, reg)
+    Ms32 = Ms64.float().contiguous()
+    Ms32_64 = Ms32.double()
+
+    # ---- the two factors -----------------------------------------------------
+    L, W9 = pk.cholesky_batched(Ms32)
+    Lp, _ = pk.cholesky_batched_plain(Ms32)
+    rows["cholesky_batched"]["max_abs_err"] = _check_lt(
+        phase, "right/f32", L.mT, W9, Lp.mT, Ms32_64,
+        checks["cholesky_batched"])
+    if _mx(torch.triu(L, 1)) != 0.0:
+        fail(phase, "cholesky_batched: strict upper triangle not exactly 0")
+    LT, W10 = pk.factor_lt_batched(Ms32)
+    LTpl, _ = pk.factor_lt_batched_plain(Ms32)
+    rows["factor_lt_batched"]["max_abs_err"] = _check_lt(
+        phase, "lt/f32", LT, W10, LTpl, Ms32_64, checks["factor_lt_batched"])
+    if _mx(torch.tril(LT, -1)) != 0.0:
+        fail(phase, "factor_lt_batched: strict lower triangle not exactly 0")
+    # against the panel-major factor of the same matrix: the accumulation is
+    # the same kernel body, so panel 0's diagonal tile and W_0 agree bit for
+    # bit; the panel TRSM is another product (hand-written here, a library
+    # matmul there), so everything behind it agrees to rounding
+    panels7, W7 = pk.factor_lt_panels(Ms32)
+    LT7 = pk.lt_of_panels(panels7)
+    vs7 = _mx(LT - LT7) / _mx(LT7)
+    checks["factor_lt_batched"]["vs_factor_lt_panels"] = {
+        "rel_diff": vs7, "w_rel_diff": _mx(W10 - W7) / _mx(W7)}
+    if not torch.equal(LT[:, :NB, :NB], LT7[:, :NB, :NB]) \
+            or not torch.equal(W10[:, 0], W7[:, 0]) or vs7 > TOL_LT_VS_PANELS:
+        fail(phase, f"factor_lt_batched against factor_lt_panels: first tile "
+             f"not bitwise, or rest off by {vs7:.3e}")
+
+    # ---- the pair-solve from a full L^T -----------------------------------------
+    g = torch.Generator(device=DEV).manual_seed(3)
+    xt = torch.randn(B_CHECK, M_ROWS, generator=g, device=DEV,
+                     dtype=torch.float64)
+    b = torch.matmul(Ms64, xt.unsqueeze(-1)).squeeze(-1).float()
+    x8 = pk.chol_solve_batched_lt(LT, W10, b)
+    rows["chol_solve_batched_lt"]["max_abs_err"] = _check_pair_solve(
+        phase, "B8", x8, pk.chol_solve_batched_lt_plain(LT, W10, b),
+        LT.double(), b, checks["chol_solve_batched_lt"])
+    # the panel pair-solve on the same factor: the same bits
+    x6 = pk.chol_solve_batched_panels(panels7, W7, b)
+    if not torch.equal(pk.chol_solve_batched_lt(LT7, W7, b), x6):
+        fail(phase, "chol_solve_batched_lt differs from "
+             "chol_solve_batched_panels on the same factor")
+    # nothing on or below the diagonal is read
+    LTn = LT7.clone()
+    LTn[torch.ones(M_ROWS, M_ROWS, dtype=torch.bool, device=DEV).tril()
+        .expand_as(LTn)] = float("nan")
+    if not torch.equal(pk.chol_solve_batched_lt(LTn, W7, b), x6):
+        fail(phase, "chol_solve_batched_lt reads below the strict suffixes")
+    del LTn
+
+    # ---- one sweep, twice, against the pair-solve on L^T ------------------------
+    y = pk.solve_triangular_batched(L, W9, b, lower=True)
+    x11 = pk.solve_triangular_batched(L, W9, y, lower=False)
+    yp = pk.solve_triangular_batched_plain(L, W9, b, lower=True)
+    xp = pk.solve_triangular_batched_plain(L, W9, yp, lower=False)
+    rows["solve_triangular_batched"]["max_abs_err"] = _check_pair_solve(
+        phase, "two_sweeps", x11, xp, L.mT.double(), b,
+        checks["solve_triangular_batched"])
+    y64 = torch.linalg.solve_triangular(L.double(), b.double().unsqueeze(-1),
+                                        upper=False).squeeze(-1)
+    x8r = pk.chol_solve_batched_lt(L.mT.contiguous(), W9, b)
+    sweeps = {"lower_rel_err_vs_f64": _mx(y.double() - y64) / _mx(y64),
+              "lower_plain_vs_f64": _mx(yp.double() - y64) / _mx(y64),
+              "two_sweeps_vs_pair_solve": _mx(x11 - x8r) / _mx(x8r)}
+    checks["solve_triangular_batched"]["sweeps"] = sweeps
+    if sweeps["lower_rel_err_vs_f64"] > TOL_SOLVE_F64 \
+            or sweeps["two_sweeps_vs_pair_solve"] > TOL_TWO_SWEEPS:
+        fail(phase, f"solve_triangular_batched: {sweeps}")
+
+    # ---- a lane gets the same bits at any batch size ----------------------------
+    _lanes_bitwise(phase, "cholesky_batched", pk.cholesky_batched, (Ms32,),
+                   (L, W9))
+    _lanes_bitwise(phase, "factor_lt_batched", pk.factor_lt_batched, (Ms32,),
+                   (LT, W10))
+    _lanes_bitwise(phase, "chol_solve_batched_lt", pk.chol_solve_batched_lt,
+                   (LT, W10, b), (x8,))
+    for lower, full in ((True, y), (False, pk.solve_triangular_batched(
+            L, W9, b, lower=False))):
+        _lanes_bitwise(
+            phase, f"solve_triangular_batched(lower={lower})",
+            lambda L_, W_, b_: pk.solve_triangular_batched(L_, W_, b_,
+                                                           lower=lower),
+            (L, W9, b), (full,))
+
+    # ---- a lane that is not positive definite shows on its own diagonal ---------
+    bad = Ms32[:2].clone()
+    bad[1, 130, 130] = -1.0
+    for name, fn, full in (("cholesky_batched", pk.cholesky_batched, L),
+                           ("factor_lt_batched", pk.factor_lt_batched, LT)):
+        F, _ = fn(bad)
+        d = torch.diagonal(F, dim1=1, dim2=2)
+        torch.cuda.synchronize()
+        if not torch.equal(F[0], full[0]) or bool(
+                ((d[1] > 0) & torch.isfinite(d[1])).all()):
+            fail(phase, f"{name}: a lane that is not positive definite is "
+                 "not reported on its diagonal, or touched its neighbour")
+    opts = slice_options(chol_backend="pallas")
+    d2bad = d2[:2].clone()
+    d2bad[1] = -d2bad[1]
+    ok = normal_eq.factor(A[:2].contiguous(), d2bad, opts).ok.tolist()
+    if ok != [True, False]:
+        fail(phase, f"normal_eq.factor: ok = {ok} for a negative d2 in lane 1")
+
+    wrong = _limit_checks(checks)
+    if wrong:
+        fail(phase, wrong)
+    del A, Ms64, Ms32, Ms32_64, L, Lp, LT, LTpl, LT7, panels7
+    torch.cuda.empty_cache()
+
+    # ---- times at the main path's batch ---------------------------------------------
+    A, d2, j, reg = _panel_inputs(B_MAIN, seed=2)
+    bounds = _panel_bounds(B_MAIN)
+    Ms = pk.assemble_sym_batched(A, d2)
+    Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
+    Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
+    del A
+
+    def set_times(name, kern, plain, **extra):
+        rows[name]["ms"] = time_ms(kern, reps=5, warm=1)
+        rows[name]["plain_ms"] = time_ms(plain, reps=2, warm=1)
+        rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+        rows[name].update(extra)
+
+    # the same function in one library call, for both factors
+    chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(Ms, check_errors=False),
+                      reps=5, warm=1)
+    set_times("cholesky_batched", lambda: pk.cholesky_batched(Ms),
+              lambda: pk.cholesky_batched_plain(Ms), library_ms=chol_ms,
+              diag_launches_inside=M_ROWS // NB)
+    set_times("factor_lt_batched", lambda: pk.factor_lt_batched(Ms),
+              lambda: pk.factor_lt_batched_plain(Ms), library_ms=chol_ms,
+              diag_launches_inside=M_ROWS // NB,
+              # the panel-major factor of the same matrix, same run
+              factor_lt_panels_ms=time_ms(lambda: pk.factor_lt_panels(Ms),
+                                          reps=5, warm=1))
+    L, W = pk.cholesky_batched(Ms)
+    LT = L.mT.contiguous()
+    panels = pk.panels_of_lt(LT)
+    g = torch.Generator(device=DEV).manual_seed(4)
+    b = torch.randn(B_MAIN, M_ROWS, generator=g, device=DEV)
+    b3 = b.unsqueeze(-1)
+    set_times("chol_solve_batched_lt",
+              lambda: pk.chol_solve_batched_lt(LT, W, b),
+              lambda: pk.chol_solve_batched_lt_plain(LT, W, b),
+              library_ms=time_ms(lambda: torch.cholesky_solve(b3, L)),
+              two_trsm_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                  L.mT, torch.linalg.solve_triangular(L, b3, upper=False),
+                  upper=True)),
+              # the panel pair-solve on the same factor, same run
+              chol_solve_batched_panels_ms=time_ms(
+                  lambda: pk.chol_solve_batched_panels(panels, W, b)))
+    set_times("solve_triangular_batched",
+              lambda: pk.solve_triangular_batched(L, W, b, lower=True),
+              lambda: pk.solve_triangular_batched_plain(L, W, b, lower=True),
+              library_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                  L, b3, upper=False)),
+              upper_ms=time_ms(lambda: pk.solve_triangular_batched(
+                  L, W, b, lower=False)),
+              upper_library_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                  L.mT, b3, upper=True)))
+    del Ms, L, LT, panels, W
+    torch.cuda.empty_cache()
+    emit(phase, ok=True, batch_check=B_CHECK, batch_timed=B_MAIN, m=M_ROWS,
+         tolerances=dict(factor_vs_f64=TOL_PANELS_F64,
+                         factor_vs_plain=TOL_PANELS_PLAIN,
+                         reconstruction=TOL_RECONSTRUCT,
+                         lt_vs_panels=TOL_LT_VS_PANELS,
+                         solve_vs_f64=TOL_SOLVE_F64,
+                         solve_vs_plain=TOL_SOLVE_PLAIN,
+                         solve_backward=TOL_SOLVE_BACKWARD,
+                         two_sweeps=TOL_TWO_SWEEPS,
+                         largest_m_backward=TOL_PADDED_BACKWARD),
+         kernels=[rows[k] for k in LT_KERNELS])
+
+
+def phase_kernel_api() -> dict:
+    """The kernel module's public paths at the main path's batch, as the
+    package's users drive them: ``factor_lt_batched`` then
+    ``chol_solve_batched_lt``, and ``cholesky_batched`` then
+    ``solve_triangular_batched`` forward and backward, solving SPD systems
+    against an f64 solve.  Returns the launch counts of this run."""
+    phase = "kernel_api"
+    A, d2, j, reg = _panel_inputs(B_MAIN, seed=6)
+    Ms = pk.assemble_sym_batched(A, d2)
+    Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
+    Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
+    del A
+    g = torch.Generator(device=DEV).manual_seed(7)
+    b = torch.randn(B_MAIN, M_ROWS, generator=g, device=DEV)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    LT, W = pk.factor_lt_batched(Ms)
+    x_lt = pk.chol_solve_batched_lt(LT, W, b)
+    L, W9 = pk.cholesky_batched(Ms)
+    y = pk.solve_triangular_batched(L, W9, b, lower=True)
+    x_tri = pk.solve_triangular_batched(L, W9, y, lower=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = counts()
+    del LT, L
+    Ms64 = Ms.double()
+    x64 = torch.cholesky_solve(b.double().unsqueeze(-1),
+                               torch.linalg.cholesky(Ms64)).squeeze(-1)
+    res = {}
+    for name, x in (("factor_lt+chol_solve_lt", x_lt),
+                    ("cholesky+two_sweeps", x_tri)):
+        res[name] = {
+            "backward_error": _mx(torch.matmul(
+                Ms64, x.double().unsqueeze(-1)).squeeze(-1) - b.double())
+            / (_mx(Ms64) * _mx(x)),
+            "rel_err_vs_f64": _mx(x.double() - x64) / _mx(x64)}
+    problems = []
+    for name, r in res.items():
+        if not (r["backward_error"] <= TOL_API_BACKWARD
+                and r["rel_err_vs_f64"] <= TOL_API_FORWARD):
+            problems.append(f"{name}: {r}")
+    if any(launched[k] == 0 for k in PATH_KERNELS["kernel_api"]):
+        problems.append(f"a kernel of the path was never launched: {launched}")
+    emit(phase, ok=not problems, batch=B_MAIN, m=M_ROWS,
+         seconds=round(secs, 3), launches=launched,
+         tolerances=dict(backward=TOL_API_BACKWARD, forward=TOL_API_FORWARD),
+         **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    del Ms, Ms64
+    torch.cuda.empty_cache()
+    return launched
+
+
 def phase_solve_batch(path: str, batch: int, m: int, opts):
     """One whole ``solve_batch`` on ``batch`` fresh instances: every kernel
     of ``path`` must be launched, at least half of the lanes end OPTIMAL,
@@ -772,6 +1148,7 @@ def phase_solve_batch(path: str, batch: int, m: int, opts):
     obj_err = [abs(s.objective - o) / (1 + abs(o)) for s, o in opt]
     res = dict(
         batch=batch, m=m, n=N_COLS, chol_backend=opts.chol_backend,
+        cg_operator=opts.cg_operator,
         seconds=round(secs, 3), status=by_status,
         median_iterations=statistics.median(s.iterations for s in sols),
         max_iterations=max(s.iterations for s in sols),
@@ -794,7 +1171,8 @@ def phase_solve_batch(path: str, batch: int, m: int, opts):
         problems.append("an OPTIMAL lane misses the 1e-6 gap")
     if any(launched[k] == 0 for k in PATH_KERNELS[path]):
         problems.append(f"a kernel of the path was never launched: {launched}")
-    if opts.chol_backend != "xla" and any(lib.calls.values()):
+    if opts.chol_backend not in ("xla", "hybrid") \
+            and any(lib.calls.values()):
         problems.append(f"library factor or triangular solve called on the "
                         f"kernel path: {lib.calls}")
     emit(phase, ok=not problems, **res)
@@ -900,13 +1278,15 @@ def phase_single(gb, batch_sols) -> None:
 
 
 def phase_rate(gb, card: str) -> None:
-    """Steady-state time of one batched iteration on both factor routes, in
-    one process on one card: the kernel route (``pallas_left``), then the
-    library route (``xla``), each from two trip counts."""
+    """Steady-state time of one batched iteration on three factor routes, in
+    one process on one card: the panel-major kernel route (``pallas_left``),
+    the library route (``xla``), then the right-looking kernel factor with
+    the full-L^T pair-solve (``pallas``), each from two trip counts."""
     k1, k2 = 2, 6
     out = {}
     for name, opts in (("pallas_left", slice_options()),
-                       ("xla", slice_options(chol_backend="xla"))):
+                       ("xla", slice_options(chol_backend="xla")),
+                       ("pallas", slice_options(chol_backend="pallas"))):
         lp = gb.lp.with_a_storage(opts)
         st0, fac = batched.batch_starting_state(lp, opts)
 
@@ -932,31 +1312,55 @@ def phase_rate(gb, card: str) -> None:
         del st0, fac
         torch.cuda.empty_cache()
     emit("rate", ok=True, batch=gb.lp.A.shape[0], m=M_ROWS, n=N_COLS, k1=k1,
-         k2=k2, card=card, **out["pallas_left"], library_route=out["xla"])
+         k2=k2, card=card, **out["pallas_left"], library_route=out["xla"],
+         pallas=out["pallas"])
+
+
+def timed(phase_fn, *args, name=None):
+    """Run a phase and print the seconds it took on a line of its own."""
+    t0 = time.perf_counter()
+    out = phase_fn(*args)
+    emit("seconds", of=name or phase_fn.__name__.removeprefix("phase_"),
+         seconds=round(time.perf_counter() - t0, 2))
+    return out
 
 
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
-    phase_build()
-    rows = phase_kernels()
-    phase_panel_kernels(rows)
+    timed(phase_build)
+    rows = timed(phase_kernels)
+    timed(phase_panel_kernels, rows)
+    timed(phase_lt_kernels, rows)
+    by_path = {}
+
+    def drive(path, batch, m, opts):
+        """One driven path: counts set to 0 just before, read just after."""
+        gb_, sols_, by_path[path] = timed(phase_solve_batch, path, batch, m,
+                                          opts, name=f"solve_batch/{path}")
+        return gb_, sols_
+
     # the main path: throughput() as it stands, every factor and every
     # preconditioner apply through the hand-written kernels
-    gb, sols, main_counts = phase_solve_batch("pallas_left", B_MAIN, M_ROWS,
-                                              slice_options())
-    # the earlier path (library Cholesky) and the padded path, each driven
-    # with the counts set to 0 just before and read just after
-    _, _, xla_counts = phase_solve_batch("xla", B_XLA, M_ROWS,
-                                         slice_options(chol_backend="xla"))
-    _, _, padded_counts = phase_solve_batch("padded", B_PADDED, M_PADDED,
-                                            slice_options())
-    phase_oracle_f64(gb)
-    phase_single(gb, sols)
-    phase_rate(gb, card)
+    gb, sols = drive("pallas_left", B_MAIN, M_ROWS, slice_options())
+    # the same batch at full width on the right-looking kernel factor and
+    # the full-L^T pair-solve
+    drive("pallas", B_MAIN, M_ROWS, slice_options(chol_backend="pallas"))
+    # the earlier paths (library Cholesky, padded panel route) and the other
+    # backends that keep a full L^T or emit panels from library products
+    drive("xla", B_XLA, M_ROWS, slice_options(chol_backend="xla"))
+    drive("padded", B_PADDED, M_PADDED, slice_options())
+    for backend in ("blocked_left", "blocked", "hybrid", "panels"):
+        drive(backend, B_XLA, M_ROWS, slice_options(chol_backend=backend))
+    drive("assembled", B_XLA, M_ROWS,
+          slice_options(chol_backend="pallas", cg_operator="assembled"))
+    drive("padded_lt", B_PADDED, M_PADDED,
+          slice_options(chol_backend="pallas"))
+    by_path["kernel_api"] = timed(phase_kernel_api)
+    timed(phase_oracle_f64, gb)
+    timed(phase_single, gb, sols)
+    timed(phase_rate, gb, card)
 
-    by_path = {"pallas_left": main_counts, "xla": xla_counts,
-               "padded": padded_counts}
     out = []
     for name, row in rows.items():
         row = {k: v for k, v in row.items() if k != "checks"}

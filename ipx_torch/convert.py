@@ -73,24 +73,37 @@ def state_to_numpy(state: IPMState) -> dict:
             for f in dataclasses.fields(IPMState)}
 
 
-def factor_from_ipx(panels, W, j, d2, ok, device="cuda") -> NormalEqFactor:
-    """A panel-major normal-equations factor (``chol_backend="pallas_left"``)
-    from the numpy leaves of another implementation's, stacked over the
-    batch: ``panels[k]`` (B, 128, m_pad - 128 k), ``W`` (B, m_pad / 128, 128,
-    128), ``j`` (B, m), ``d2`` (B, n), ``ok`` (B,).  One instance's leaves
+def factor_from_ipx(panels, W, j, d2, ok, device="cuda", LT=None,
+                    M=None) -> NormalEqFactor:
+    """A normal-equations factor that carries W, from the numpy leaves of
+    another implementation's, stacked over the batch: either panel-major,
+    ``panels[k]`` (B, 128, m_pad - 128 k), or, with ``panels`` empty, the full
+    transposed factor ``LT`` (B, m_pad, m_pad); ``W`` (B, m_pad / 128, 128,
+    128), ``j`` (B, m), ``d2`` (B, n), ``ok`` (B,), and where the factor
+    carries it the assembled matrix ``M`` (B, m, m).  One instance's leaves
     (each of one rank less) become a batch of one."""
     panels = [_batched(p, 2) for p in panels]
-    if not panels:
-        raise ValueError("a panel-major factor has at least one panel")
-    B, m_pad = panels[0].shape[0], panels[0].shape[2]
-    for k, p in enumerate(panels):
-        if p.shape != (B, NB, m_pad - k * NB):
-            raise ValueError(f"panels[{k}] is {p.shape}, expected "
-                             f"{(B, NB, m_pad - k * NB)}")
+    if bool(panels) == (LT is not None):
+        raise ValueError("give the panels or the full LT, one of the two")
+    if panels:
+        B, m_pad = panels[0].shape[0], panels[0].shape[2]
+        for k, p in enumerate(panels):
+            if p.shape != (B, NB, m_pad - k * NB):
+                raise ValueError(f"panels[{k}] is {p.shape}, expected "
+                                 f"{(B, NB, m_pad - k * NB)}")
+        if len(panels) * NB != m_pad:
+            raise ValueError(f"{len(panels)} panels do not make a factor of "
+                             f"order {m_pad}")
+    else:
+        LT = _batched(LT, 2)
+        B, m_pad = LT.shape[0], LT.shape[2]
+        if LT.shape != (B, m_pad, m_pad) or m_pad % NB:
+            raise ValueError(f"LT is {LT.shape}, expected (B, m_pad, m_pad) "
+                             f"with m_pad a multiple of {NB}")
     W = _batched(W, 3)
-    if len(panels) * NB != m_pad or W.shape != (B, len(panels), NB, NB):
-        raise ValueError(f"{len(panels)} panels and W{W.shape} do not make "
-                         f"a factor of order {m_pad}")
+    if W.shape != (B, m_pad // NB, NB, NB):
+        raise ValueError(f"W{W.shape} does not belong to a factor of order "
+                         f"{m_pad}")
     f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,
                                  device=device)                  # copies
     return NormalEqFactor(
@@ -98,4 +111,6 @@ def factor_from_ipx(panels, W, j, d2, ok, device="cuda") -> NormalEqFactor:
         j=f32(_batched(j, 1)), d2=f32(_batched(d2, 1)),
         ok=torch.tensor(np.atleast_1d(np.asarray(ok)), dtype=torch.bool,
                         device=device),
-        W=f32(W), LTp=tuple(f32(p) for p in panels))
+        W=f32(W), LTp=tuple(f32(p) for p in panels),
+        LT=None if LT is None else f32(LT),
+        M=None if M is None else f32(_batched(M, 2)))

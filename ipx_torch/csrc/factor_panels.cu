@@ -5,6 +5,9 @@
 //                                  diagonal on
 //   W          (B, m / NB, NB, NB): inverses of the diagonal blocks of L
 //
+// or, for factor_lt_batched, as a full upper-triangular LT (B, m, m) whose
+// rows k NB .. (k+1) NB are zeros, L_kk^T, W_k C_k[:, NB:].
+//
 // Per panel k the caller runs
 //
 //   C_k = (start tile row) - sum_{j<k} P_j[:, o-jNB : o-jNB+NB]^T P_j[:, o-jNB:]
@@ -19,6 +22,13 @@
 // so the scaled, regularised normal matrix is never written to device memory.
 // accum_panel replaces _accum_panel_kernel (entry factor_lt_panels): the start
 // tile is read from an assembled, scaled, regularised matrix Ms.
+// The full-L^T factor replaces _factor_lt_kernel (entry factor_lt_batched),
+// which keeps the diagonal chain and the panel TRSM inside its body: here
+// accum_panel reads the prior rows from LT itself (the same kernel body over
+// another address map, so its sums are those of factor_lt_panels),
+// diag_factor_inv writes L_kk^T into LT's diagonal tile, and lt_rows_kernel
+// writes the rest of the row panel: W_k C_k[:, NB:] right of the diagonal
+// tile as a hand-written tile product, zeros left of it.
 // diag_factor_inv has no TPU kernel behind it: there the 128 x 128 diagonal
 // Cholesky and its inverse are an unrolled chain of XLA operations between
 // the kernel calls (_factor_block_twolevel); run operation by operation from
@@ -70,11 +80,12 @@ namespace {
 using namespace ipx_tile;
 
 // FUSED: start tile assembled from A (type T).  Otherwise read from Ms.
-template <typename T, bool FUSED>
+// Prior: where the rows of the k prior panels lie (PanelRows or FullRows).
+template <typename T, bool FUSED, typename Prior>
 __global__ void __launch_bounds__(THREADS)
 panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
              const float* __restrict__ jv, const float* __restrict__ reg,
-             const float* __restrict__ Ms, PanelPtrs prior, float* C, int m,
+             const float* __restrict__ Ms, Prior prior, float* C, int m,
              int n, int k, int vec_ok) {
     __shared__ __align__(16) float Xs[BK][LDS];
     __shared__ __align__(16) float Ys[BK][LDS];
@@ -121,24 +132,13 @@ panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
 
     // ---- sum_{j<k} P_j[:, (k-j) NB + r]^T P_j[:, (t-j) NB + c] --------------
     zero_total(tot, tid);
-    const int lk = tid >> 4, lc = (tid & 15) * 8;   // loader: row of the pass,
-                                                    // eight columns
     for (int jj = 0; jj < k; ++jj) {
-        const int wj = m - jj * TILE;
-        const float* P = prior.p[jj] + b * size_t(TILE) * wj;
-        const float* Px = P + (k - jj) * TILE + lc;
-        const float* Py = P + (t - jj) * TILE + lc;
+        size_t wj;                                // row stride of panel jj
+        const float* P = prior.at(jj, b, m, wj);
         zero_acc(acc);
         for (int k0 = 0; k0 < TILE; k0 += BK) {
-            const size_t ro = size_t(k0 + lk) * wj;
-            const float4 x0 = *reinterpret_cast<const float4*>(Px + ro);
-            const float4 x1 = *reinterpret_cast<const float4*>(Px + ro + 4);
-            const float4 y0 = *reinterpret_cast<const float4*>(Py + ro);
-            const float4 y1 = *reinterpret_cast<const float4*>(Py + ro + 4);
-            *reinterpret_cast<float4*>(&Xs[lk][lc]) = x0;
-            *reinterpret_cast<float4*>(&Xs[lk][lc + 4]) = x1;
-            *reinterpret_cast<float4*>(&Ys[lk][lc]) = y0;
-            *reinterpret_cast<float4*>(&Ys[lk][lc + 4]) = y1;
+            stage_pass<false, false>(P + (k - jj) * TILE, wj,
+                                     P + (t - jj) * TILE, wj, k0, Xs, Ys, tid);
             __syncthreads();
             mma_pass(Xs, Ys, tx, ty, acc);
             __syncthreads();
@@ -161,11 +161,11 @@ panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
         }
 }
 
-template <typename T, bool FUSED>
+template <typename T, bool FUSED, typename Prior>
 int launch_panel(const void* A, const float* d2, const float* jv,
-                 const float* reg, const float* Ms, const PanelPtrs& prior,
+                 const float* reg, const float* Ms, const Prior& prior,
                  float* C, int B, int m, int n, int k, cudaStream_t stream) {
-    auto kern = panel_kernel<T, FUSED>;
+    auto kern = panel_kernel<T, FUSED, Prior>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TOT_BYTES));
     if (err != cudaSuccess) return int(err);
@@ -174,6 +174,42 @@ int launch_panel(const void* A, const float* d2, const float* jv,
     kern<<<grid, THREADS, TOT_BYTES, stream>>>(
         static_cast<const T*>(A), d2, jv, reg, Ms, prior, C, m, n, k, vec_ok);
     return int(cudaGetLastError());
+}
+
+// Rows k NB .. (k+1) NB of a full L^T apart from the diagonal tile: block
+// (t, b) writes tile t of the row panel, zeros for t < k and
+// W_k C[:, (t - k) NB ...] for t > k, with C (B, NB, m - k NB) the accumulated
+// panel.  The product is the panel TRSM as a product with the block inverse.
+__global__ void __launch_bounds__(THREADS)
+lt_rows_kernel(const float* __restrict__ W, const float* __restrict__ C,
+               float* __restrict__ LT, int m, int k) {
+    __shared__ __align__(16) float Xs[BK][LDS];
+    __shared__ __align__(16) float Ys[BK][LDS];
+    extern __shared__ float tot[];                // parked sums, TOT_BYTES
+
+    const int t = blockIdx.x;
+    if (t == k) return;                           // diag_factor_inv's tile
+    const size_t b = blockIdx.y;
+    const int o = k * TILE, w = m - o, nb = m / TILE;
+    const int tid = threadIdx.x;
+    const int tx = tid & 15, ty = tid >> 4;
+    float* out = LT + (b * size_t(m) + o) * m + size_t(t) * TILE;
+
+    float acc[8][8];
+    if (t < k) {
+        zero_acc(acc);
+    } else {
+        product128<true, false>(W + (b * nb + k) * size_t(TILE) * TILE, TILE,
+                                C + b * size_t(TILE) * w
+                                  + size_t(t - k) * TILE, w,
+                                Xs, Ys, tot, tid, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            out[size_t(ty * 4 + tile_off(i)) * m + tx * 4 + tile_off(j)] =
+                acc[i][j];
 }
 
 // ---------------------------------------------------------------------------
@@ -217,7 +253,8 @@ __device__ __forceinline__ double quad_sum(double v) {
 // warps a block are what hides the latency of their loads.
 __global__ void __launch_bounds__(DTHREADS)
 diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
-                       long long lt_bs, int lt_rs, float* W, long long w_bs) {
+                       long long lt_bs, int lt_rs, float* W, long long w_bs,
+                       int lower_out) {
     extern __shared__ double dsm[];
     double* Ls = dsm;                   // DN x DLD
     double* ad = dsm + DN * DLD;        // DN: the tile's own diagonal
@@ -256,11 +293,14 @@ diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
         __syncthreads();
     }
 
-    // ---- L^T out: (r, c) = L[c][r] on and above the diagonal, else 0 --------
+    // ---- L^T out: (r, c) = L[c][r] on and above the diagonal, else 0; or,
+    // with lower_out, L itself ------------------------------------------------
     float* LTb = LT + b * lt_bs;
     for (int e = tid; e < DN * DN; e += DTHREADS) {
         const int r = e / DN, c = e % DN;
-        LTb[size_t(r) * lt_rs + c] = (c >= r) ? float(Ls[c * DLD + r]) : 0.f;
+        const int hi = lower_out ? r : c, lo = lower_out ? c : r;
+        LTb[size_t(r) * lt_rs + c] = (hi >= lo) ? float(Ls[hi * DLD + lo])
+                                                : 0.f;
     }
 
     // ---- W = L^-1 by forward substitution; DQ lanes own column c ------------
@@ -300,8 +340,8 @@ extern "C" int ipx_fused_panel(const void* A, const float* d2, const float* jv,
     if (B < 1 || B > 65535 || m < TILE || m % TILE || n < TILE || n % TILE)
         return -1;
     if (k < 0 || k >= m / TILE) return -1;
-    PanelPtrs pp;
-    if (fill_panels(pp, prior, k) != 0) return -1;
+    PanelRows pp;
+    if (fill_panels(pp.panels, prior, k) != 0) return -1;
     return launch_panel<__nv_bfloat16, true>(
         A, d2, jv, reg, nullptr, pp, C, B, m, n, k,
         static_cast<cudaStream_t>(stream));
@@ -312,21 +352,54 @@ extern "C" int ipx_accum_panel(const float* Ms, const void* const* prior,
                                float* C, int B, int m, int k, void* stream) {
     if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
     if (k < 0 || k >= m / TILE) return -1;
-    PanelPtrs pp;
-    if (fill_panels(pp, prior, k) != 0) return -1;
+    PanelRows pp;
+    if (fill_panels(pp.panels, prior, k) != 0) return -1;
     return launch_panel<float, false>(nullptr, nullptr, nullptr, nullptr, Ms,
                                       pp, C, B, m, 0, k,
                                       static_cast<cudaStream_t>(stream));
 }
 
+// Panel k from Ms, the k prior panels being rows 0 .. k NB of the full
+// LT (B, m, m) f32 (only their columns from k NB on are read).
+extern "C" int ipx_accum_panel_lt(const float* Ms, const float* LT, float* C,
+                                  int B, int m, int k, void* stream) {
+    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
+    if (k < 0 || k >= m / TILE) return -1;
+    if (reinterpret_cast<uintptr_t>(LT) % 16 != 0) return -1;
+    return launch_panel<float, false>(nullptr, nullptr, nullptr, nullptr, Ms,
+                                      FullRows{LT}, C, B, m, 0, k,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// Rows k NB .. (k+1) NB of LT (B, m, m) outside the diagonal tile, from
+// W (B, m / NB, NB, NB) and the accumulated panel C (B, NB, m - k NB):
+// zeros to the left, W_k C[:, NB:] to the right.
+extern "C" int ipx_lt_rows(const float* W, const float* C, float* LT, int B,
+                           int m, int k, void* stream) {
+    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
+    if (k < 0 || k >= m / TILE) return -1;
+    if ((reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(C)
+         | reinterpret_cast<uintptr_t>(LT)) % 16 != 0)
+        return -1;
+    cudaError_t err = cudaFuncSetAttribute(
+        lt_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(TOT_BYTES));
+    if (err != cudaSuccess) return int(err);
+    dim3 grid(m / TILE, B);
+    lt_rows_kernel<<<grid, THREADS, TOT_BYTES,
+                     static_cast<cudaStream_t>(stream)>>>(W, C, LT, m, k);
+    return int(cudaGetLastError());
+}
+
 // C: B tiles of 128 x 128 f32 (instance stride c_bs, row stride c_rs, in
 // floats; lower triangle read) -> LT (instance stride lt_bs, row stride
-// lt_rs) = L^T and W (instance stride w_bs, rows contiguous) = L^-1.  LT may
-// be the memory of C: a block reads its whole tile before it writes.
+// lt_rs) = L^T, or L itself if lower_out != 0, and W (instance stride w_bs,
+// rows contiguous) = L^-1.  LT may be the memory of C: a block reads its
+// whole tile before it writes.
 extern "C" int ipx_diag_factor_inv(const float* C, long long c_bs, int c_rs,
                                    float* LT, long long lt_bs, int lt_rs,
                                    float* W, long long w_bs, int B,
-                                   void* stream) {
+                                   int lower_out, void* stream) {
     if (B < 1 || c_rs < DN || lt_rs < DN || w_bs < DN * DN) return -1;
     cudaError_t err = cudaFuncSetAttribute(
         diag_factor_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -334,6 +407,6 @@ extern "C" int ipx_diag_factor_inv(const float* C, long long c_bs, int c_rs,
     if (err != cudaSuccess) return int(err);
     diag_factor_inv_kernel<<<B, DTHREADS, DIAG_SMEM,
                              static_cast<cudaStream_t>(stream)>>>(
-        C, c_bs, c_rs, LT, lt_bs, lt_rs, W, w_bs);
+        C, c_bs, c_rs, LT, lt_bs, lt_rs, W, w_bs, lower_out);
     return int(cudaGetLastError());
 }

@@ -1,17 +1,37 @@
-// Pair-solve  L L^T x = b  from the panel-major factor, batched:
+// Blocked triangular solves from a Cholesky factor and the inverses W of its
+// diagonal blocks, batched.
 //
-//   panels[k]  (B, NB, m - k NB) f32: rows k NB .. (k+1) NB of L^T from the
-//              diagonal on (only the strict suffix, local columns NB.., is
-//              read here)
+// Pair-solve  L L^T x = b  from the rows of L^T:
+//
+//   stripe k   the strict suffix of rows k NB .. (k+1) NB of L^T, read either
+//              from the panel-major factor (panels[k], (B, NB, m - k NB), local
+//              columns NB..) or from a full (B, m, m) L^T
+//              (LT[:, k NB:(k+1) NB, (k+1) NB:], row stride m)
 //   W          (B, m / NB, NB, NB) f32: inverses of the diagonal blocks of L
 //   b, x       (B, m) f32
 //
-//   forward   k = 0 .. nb-1:  y_k = W_k r_k;  r[o+NB:] -= P_k[:, NB:]^T y_k
-//   backward  k = nb-1 .. 0:  x_k = W_k^T (r_k - P_k[:, NB:] x[o+NB:])
+//   forward   k = 0 .. nb-1:  y_k = W_k r_k;  r[o+NB:] -= S_k^T y_k
+//   backward  k = nb-1 .. 0:  x_k = W_k^T (r_k - S_k x[o+NB:])
 //
-// Replaces the Pallas kernel _solve_pair_panels_kernel of
-// ipx/kernels/cholesky.py (entry chol_solve_batched_panels): one launch per
-// preconditioner apply.
+// Replaces the Pallas kernels _solve_pair_panels_kernel (entry
+// chol_solve_batched_panels) and _solve_pair_lt_kernel / _solve_pair_lt_kernel_db
+// (entry chol_solve_batched_lt) of ipx/kernels/cholesky.py: one launch per
+// preconditioner apply.  The two layouts are one kernel body over an accessor
+// that names stripe k's first entry and row stride, so both take the same sums
+// in the same order and give the same bits for the same factor.  Of a full
+// L^T only the strict-suffix stripes are read: what lies on and below the
+// block diagonal may hold anything.
+//
+// One sweep from the untransposed L (solve_tri_kernel, replaces _solve_kernel,
+// entry solve_triangular_batched):
+//
+//   lower     k = 0 .. nb-1:  y_k = W_k (b_k - L[k, :k] y[:k])      row blocks
+//   upper     k = nb-1 .. 0:  x_k = W_k^T (b_k - L[k+1:, k]^T x[k+1:])
+//                                                                column blocks
+//
+// The column block of the upper sweep is read row by row, a warp taking the
+// 128 columns of a row in one 512-byte request (tall_col_sums), so the
+// transposed product costs no strided loads and no transposed copy.
 //
 // Bound on this card: bytes.  Every panel entry and every W entry meets one
 // vector entry in each sweep (2 flops a read), so the least time is the
@@ -51,9 +71,37 @@ constexpr size_t solve_smem_bytes(int m) {
     return (size_t(2) * m + size_t(RG) * ((m - NB > NB) ? m - NB : NB) + NB)
            * sizeof(double);
 }
+// the one-sweep solve: b, the solution, tall_col_sums' partials (one row of
+// NB per warp), two NB-vectors
+constexpr size_t tri_smem_bytes(int m) {
+    return (size_t(2) * m + size_t(NWARPS) * NB + 2 * NB) * sizeof(double);
+}
 constexpr size_t SMEM_LIMIT = 227u * 1024u;     // one block's, sm_90
 static_assert(solve_smem_bytes(IPX_PANEL_MAX_M) <= SMEM_LIMIT,
               "IPX_PANEL_MAX_M does not fit the pair-solve's shared memory");
+static_assert(tri_smem_bytes(IPX_PANEL_MAX_M) <= SMEM_LIMIT,
+              "IPX_PANEL_MAX_M does not fit the one-sweep solve's shared "
+              "memory");
+
+// Where stripe k of instance b starts (its local column 0 is global column
+// (k + 1) NB) and its row stride, in floats.
+struct PanelStripes {
+    PanelPtrs panels;
+    __device__ __forceinline__ const float* at(size_t b, int k, int m,
+                                               size_t& ld) const {
+        ld = size_t(m - k * NB);
+        return panels.p[k] + b * size_t(NB) * ld + NB;
+    }
+};
+
+struct FullStripes {
+    const float* LT;                    // (B, m, m)
+    __device__ __forceinline__ const float* at(size_t b, int k, int m,
+                                               size_t& ld) const {
+        ld = size_t(m);
+        return LT + (b * size_t(m) + size_t(k) * NB) * ld + size_t(k + 1) * NB;
+    }
+};
 
 // part[g * ncol + c] = sum over rows 32 g .. 32 g + 31 of Mat[row, c] v[row]
 __device__ __forceinline__ void col_sums(const float* __restrict__ Mat,
@@ -96,13 +144,36 @@ __device__ __forceinline__ void row_dots(const float* __restrict__ Mat,
     }
 }
 
+// part[g * NB + c] = sum over rows g, g + NWARPS, ... of Mat[row, c] v[row]
+// for the NB columns of a tall block (nrows a multiple of NB): warp g walks
+// its rows, each lane four adjacent columns.
+__device__ __forceinline__ void tall_col_sums(const float* __restrict__ Mat,
+                                              size_t ld, int nrows,
+                                              const double* v, double* part,
+                                              int warp, int lane) {
+    double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
+#pragma unroll 4
+    for (int r = warp; r < nrows; r += NWARPS) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            Mat + size_t(r) * ld + lane * 4);
+        const double vr = v[r];
+        a0 = fma(double(q.x), vr, a0);
+        a1 = fma(double(q.y), vr, a1);
+        a2 = fma(double(q.z), vr, a2);
+        a3 = fma(double(q.w), vr, a3);
+    }
+    double* p = part + warp * NB + lane * 4;
+    p[0] = a0; p[1] = a1; p[2] = a2; p[3] = a3;
+}
+
 // the value a float32 store would keep, as a double
 __device__ __forceinline__ double rnd(double v) { return double(float(v)); }
 
+template <typename Stripes>
 __global__ void __launch_bounds__(STHREADS)
-solve_pair_panels_kernel(PanelPtrs panels, const float* __restrict__ W,
-                         const float* __restrict__ bvec, float* __restrict__ x,
-                         int m) {
+solve_pair_kernel(Stripes stripes, const float* __restrict__ W,
+                  const float* __restrict__ bvec, float* __restrict__ x,
+                  int m) {
     extern __shared__ double ssm[];
     const int nb = m / NB;
     const int pc = (m - NB > NB) ? m - NB : NB;
@@ -132,8 +203,9 @@ solve_pair_panels_kernel(PanelPtrs panels, const float* __restrict__ W,
         __syncthreads();
         if (k < nb - 1) {
             const int ncol = w - NB;
-            const float* Pk = panels.p[k] + b * size_t(NB) * w + NB;
-            col_sums(Pk, w, ncol, yv, part, warp, lane);
+            size_t ld;
+            const float* Pk = stripes.at(b, k, m, ld);
+            col_sums(Pk, ld, ncol, yv, part, warp, lane);
             __syncthreads();
             for (int c = tid; c < ncol; c += STHREADS) {
                 const double s = (part[c] + part[ncol + c])
@@ -148,8 +220,9 @@ solve_pair_panels_kernel(PanelPtrs panels, const float* __restrict__ W,
     for (int k = nb - 1; k >= 0; --k) {
         const int o = k * NB, w = m - o;
         if (k < nb - 1) {
-            const float* Pk = panels.p[k] + b * size_t(NB) * w + NB;
-            row_dots(Pk, w, w - NB, xs + o + NB, yv, warp, lane);
+            size_t ld;
+            const float* Pk = stripes.at(b, k, m, ld);
+            row_dots(Pk, ld, w - NB, xs + o + NB, yv, warp, lane);
             __syncthreads();
             if (tid < NB) yv[tid] = rnd(r[o + tid] - yv[tid]);
         } else if (tid < NB) {
@@ -167,6 +240,95 @@ solve_pair_panels_kernel(PanelPtrs panels, const float* __restrict__ W,
     for (int i = tid; i < m; i += STHREADS) x[b * m + i] = float(xs[i]);
 }
 
+template <typename Stripes>
+int launch_pair(const Stripes& stripes, const float* W, const float* b,
+                float* x, int B, int m, void* stream) {
+    const size_t smem = solve_smem_bytes(m);
+    auto kern = solve_pair_kernel<Stripes>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    kern<<<B, STHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        stripes, W, b, x, m);
+    return int(cudaGetLastError());
+}
+
+// One sweep from the untransposed factor L (B, m, m): LOWER solves L y = b
+// going down, reading the row block L[o:o+NB, :o]; otherwise L^T x = b going
+// up, reading the column block L[o+NB:, o:o+NB].
+template <bool LOWER>
+__global__ void __launch_bounds__(STHREADS)
+solve_tri_kernel(const float* __restrict__ L, const float* __restrict__ W,
+                 const float* __restrict__ bvec, float* __restrict__ x, int m) {
+    extern __shared__ double ssm[];
+    const int nb = m / NB;
+    double* r = ssm;                    // m: the right-hand side
+    double* xs = r + m;                 // m: the solution
+    double* part = xs + m;              // NWARPS * NB
+    double* yv = part + NWARPS * NB;    // NB: b_k less what is already solved
+    double* tv = yv + NB;               // NB: row_dots' output
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const size_t b = blockIdx.x;
+    const float* Lb = L + b * size_t(m) * m;
+    const float* Wb = W + b * size_t(nb) * NB * NB;
+
+    for (int i = tid; i < m; i += STHREADS) {
+        r[i] = double(bvec[b * m + i]);
+        xs[i] = 0.0;
+    }
+    __syncthreads();
+
+    if (LOWER) {
+        for (int k = 0; k < nb; ++k) {
+            const int o = k * NB;
+            if (k > 0) {
+                row_dots(Lb + size_t(o) * m, m, o, xs, tv, warp, lane);
+                __syncthreads();
+                if (tid < NB) yv[tid] = rnd(r[o + tid] - tv[tid]);
+            } else if (tid < NB) {
+                yv[tid] = r[tid];
+            }
+            __syncthreads();
+            row_dots(Wb + size_t(k) * NB * NB, NB, NB, yv, tv, warp, lane);
+            __syncthreads();
+            if (tid < NB) xs[o + tid] = rnd(tv[tid]);
+            __syncthreads();
+        }
+    } else {
+        for (int k = nb - 1; k >= 0; --k) {
+            const int o = k * NB;
+            if (k < nb - 1) {
+                tall_col_sums(Lb + size_t(o + NB) * m + o, m, m - o - NB,
+                              xs + o + NB, part, warp, lane);
+                __syncthreads();
+                if (tid < NB) {
+                    double s = 0.0;
+#pragma unroll
+                    for (int g = 0; g < NWARPS; ++g) s += part[g * NB + tid];
+                    yv[tid] = rnd(r[o + tid] - s);
+                }
+            } else if (tid < NB) {
+                yv[tid] = r[o + tid];
+            }
+            __syncthreads();
+            col_sums(Wb + size_t(k) * NB * NB, NB, NB, yv, part, warp, lane);
+            __syncthreads();
+            if (tid < NB)
+                xs[o + tid] = rnd((part[tid] + part[NB + tid])
+                                  + (part[2 * NB + tid] + part[3 * NB + tid]));
+            __syncthreads();
+        }
+    }
+
+    for (int i = tid; i < m; i += STHREADS) x[b * m + i] = float(xs[i]);
+}
+
+bool solve_args_ok(const float* F, const float* W, int B, int m) {
+    return B >= 1 && m >= NB && m % NB == 0 && m <= IPX_PANEL_MAX_M
+        && reinterpret_cast<uintptr_t>(W) % 16 == 0
+        && (F == nullptr || reinterpret_cast<uintptr_t>(F) % 16 == 0);
+}
+
 }  // namespace
 
 // panels: host array of m / 128 device pointers, panel k being (B, 128,
@@ -175,17 +337,32 @@ solve_pair_panels_kernel(PanelPtrs panels, const float* __restrict__ W,
 extern "C" int ipx_solve_pair_panels(const void* const* panels, const float* W,
                                      const float* b, float* x, int B, int m,
                                      void* stream) {
-    if (B < 1 || m < NB || m % NB || m > IPX_PANEL_MAX_M) return -1;
-    const size_t smem = solve_smem_bytes(m);
-    if (reinterpret_cast<uintptr_t>(W) % 16 != 0) return -1;
-    PanelPtrs pp;
-    if (fill_panels(pp, panels, m / NB) != 0) return -1;
+    if (!solve_args_ok(nullptr, W, B, m)) return -1;
+    PanelStripes st;
+    if (fill_panels(st.panels, panels, m / NB) != 0) return -1;
+    return launch_pair(st, W, b, x, B, m, stream);
+}
+
+// The same solve from a full LT (B, m, m) f32 = L^T, of which only the strict
+// suffix of each 128-row stripe is read.
+extern "C" int ipx_solve_pair_lt(const float* LT, const float* W,
+                                 const float* b, float* x, int B, int m,
+                                 void* stream) {
+    if (!solve_args_ok(LT, W, B, m)) return -1;
+    return launch_pair(FullStripes{LT}, W, b, x, B, m, stream);
+}
+
+// One sweep from the untransposed L (B, m, m) f32: L y = b (lower != 0) or
+// L^T x = b (lower == 0).
+extern "C" int ipx_solve_tri(const float* L, const float* W, const float* b,
+                             float* x, int B, int m, int lower, void* stream) {
+    if (!solve_args_ok(L, W, B, m)) return -1;
+    const size_t smem = tri_smem_bytes(m);
+    auto kern = lower ? solve_tri_kernel<true> : solve_tri_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        solve_pair_panels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
-    solve_pair_panels_kernel<<<B, STHREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-        pp, W, b, x, m);
+    kern<<<B, STHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        L, W, b, x, m);
     return int(cudaGetLastError());
 }

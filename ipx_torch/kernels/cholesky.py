@@ -1,6 +1,5 @@
-"""Normal-matrix assembly and the panel-major Cholesky factor and solve
-(counterpart of ``ipx/kernels/cholesky.py``; the right-looking and
-full-matrix kernels of that file are not in this package yet).
+"""Normal-matrix assembly, the blocked Cholesky factors and the blocked
+triangular solves (counterpart of ``ipx/kernels/cholesky.py``).
 
 ``assemble_sym_batched`` computes ``M[b] = (A[b] * d2[b]) @ A[b]^T`` over the
 lower triangle of 128 x 128 tiles only, symmetrises the diagonal tiles and
@@ -22,11 +21,23 @@ never written; ``factor_lt_panels`` reads them from an assembled matrix
 as it is outside the kernels in ``ipx``.  ``chol_solve_batched_panels`` is
 the pair-solve ``L L^T x = b`` in one launch (``csrc/solve_panels.cu``).
 
+The factors that keep a full (B, m, m) matrix: ``factor_lt_batched`` is the
+same left-looking factor written into an upper-triangular ``LT = L^T`` (the
+prior rows are read from LT itself and the panel TRSM is a hand-written tile
+product, ``csrc/factor_panels.cu``); ``cholesky_batched`` is right-looking in
+a copy of M and returns the lower-triangular L (``csrc/cholesky_right.cu``).
+``chol_solve_batched_lt`` is the pair-solve from a full ``LT``: the kernel of
+``chol_solve_batched_panels`` over another address map, so the two give the
+same bits for the same factor.  ``solve_triangular_batched`` is one sweep
+from the untransposed L.
+
 For a CUDA tensor each wrapper launches its hand-written kernel or raises;
 for a CPU tensor, and only then, it evaluates the ``*_plain`` version beside
 it, which is also what the kernels are held against on the card.
-``LAUNCHES`` counts kernel launches per wrapper (one per panel for the two
-factors).  The panel-major route takes m up to ``MAX_M`` on any device.
+``LAUNCHES`` counts kernel launches per wrapper (one per panel for the
+panel-major factors, two per panel for ``factor_lt_batched`` and
+``cholesky_batched``, the diagonal kernel's counted apart).  Every blocked
+factor and solve takes m up to ``MAX_M`` on any device.
 """
 from __future__ import annotations
 
@@ -40,7 +51,9 @@ NB = 128    # tile edge of the symmetric structure (same as the kernel's TILE)
 
 LAUNCHES = {"assemble_sym_batched": 0, "factor_fused_panels": 0,
             "factor_lt_panels": 0, "diag_factor_inv": 0,
-            "chol_solve_batched_panels": 0}
+            "chol_solve_batched_panels": 0, "chol_solve_batched_lt": 0,
+            "cholesky_batched": 0, "factor_lt_batched": 0,
+            "solve_triangular_batched": 0}
 
 
 def assemble_sym_batched_plain(A: torch.Tensor, d2: torch.Tensor
@@ -73,6 +86,14 @@ def _entry(lib: str, name: str, argtypes):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _launched(name: str, rc: int, what: str) -> None:
+    """Raise on a launch the C entry point reports as failed, else count it."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (code {rc}) "
+                           f"at {what}")
+    LAUNCHES[name] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -108,10 +129,7 @@ def assemble_sym_batched(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(A.device):
         rc = fn(A.data_ptr(), int(A.dtype == torch.bfloat16), d2.data_ptr(),
                 M.data_ptr(), B, m, n, _stream(A))
-    if rc != 0:
-        raise RuntimeError(f"assemble_sym_batched: kernel launch failed "
-                           f"(code {rc}) at B={B}, m={m}, n={n}, {A.dtype}")
-    LAUNCHES["assemble_sym_batched"] += 1
+    _launched("assemble_sym_batched", rc, f"B={B}, m={m}, n={n}, {A.dtype}")
     return M
 
 
@@ -183,14 +201,15 @@ def _factor_block_plain(blk: torch.Tensor, h: int = 8):
     return L, W
 
 
-def diag_factor_inv_plain(CD: torch.Tensor):
-    """(B, NB, NB) SPD blocks, lower triangle read -> ``(L^T, L^-1)``."""
+def diag_factor_inv_plain(CD: torch.Tensor, lower_out: bool = False):
+    """(B, NB, NB) SPD blocks, lower triangle read -> ``(L^T, L^-1)``, or
+    ``(L, L^-1)`` with ``lower_out``."""
     L, W = _factor_block_plain(CD)
-    return L.mT.contiguous(), W
+    return (L if lower_out else L.mT.contiguous()), W
 
 
-def _diag_plain_into(CD, out_lt, out_w) -> None:
-    LT, W = diag_factor_inv_plain(CD)
+def _diag_plain_into(CD, out_lt, out_w, lower_out: bool = False) -> None:
+    LT, W = diag_factor_inv_plain(CD, lower_out)
     out_lt.copy_(LT)
     out_w.copy_(W)
 
@@ -215,13 +234,15 @@ def _check_tile_view(name: str, t: torch.Tensor, B: int, like) -> None:
 
 
 def diag_factor_inv(CD: torch.Tensor, out_lt: torch.Tensor | None = None,
-                    out_w: torch.Tensor | None = None):
+                    out_w: torch.Tensor | None = None,
+                    lower_out: bool = False):
     """Cholesky factor and inverse of a batch of 128 x 128 diagonal blocks.
 
     CD (B, NB, NB) f32, SPD, only its lower triangle is read; returns
     ``(L^T, W)`` with ``W = L^-1``, both (B, NB, NB) f32, written into
     ``out_lt`` / ``out_w`` when given (views with contiguous rows; ``out_lt``
-    may be ``CD`` itself).  A block that is not positive definite comes back
+    may be ``CD`` itself).  With ``lower_out`` the first output is L, not
+    its transpose.  A block that is not positive definite comes back
     with a non-positive or non-finite diagonal entry of ``L^T``; nothing
     raises.  On the card: one block per instance, float64 dot products
     rounded once on store."""
@@ -239,18 +260,16 @@ def diag_factor_inv(CD: torch.Tensor, out_lt: torch.Tensor | None = None,
     if out_w.stride(1) != NB or out_w.stride(2) != 1:
         raise ValueError("out_w must have contiguous (NB, NB) blocks")
     if not CD.is_cuda:
-        _diag_plain_into(CD, out_lt, out_w)
+        _diag_plain_into(CD, out_lt, out_w, lower_out)
         return out_lt, out_w
     fn = _entry("factor_panels", "ipx_diag_factor_inv",
-                [_P, _L, _I, _P, _L, _I, _P, _L, _I, _P])
+                [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _P])
     with torch.cuda.device(CD.device):
         rc = fn(CD.data_ptr(), CD.stride(0), CD.stride(1),
                 out_lt.data_ptr(), out_lt.stride(0), out_lt.stride(1),
-                out_w.data_ptr(), out_w.stride(0), B, _stream(CD))
-    if rc != 0:
-        raise RuntimeError(f"diag_factor_inv: kernel launch failed "
-                           f"(code {rc}) at B={B}")
-    LAUNCHES["diag_factor_inv"] += 1
+                out_w.data_ptr(), out_w.stride(0), B, int(lower_out),
+                _stream(CD))
+    _launched("diag_factor_inv", rc, f"B={B}")
     return out_lt, out_w
 
 
@@ -258,7 +277,7 @@ def diag_factor_inv(CD: torch.Tensor, out_lt: torch.Tensor | None = None,
 # panel-major factor
 # --------------------------------------------------------------------------
 
-# Largest m of the panel-major route: the pair-solve keeps r, x and its
+# Largest m of the blocked factors and solves: the solves keep r, x and their
 # partial sums in one block's shared memory.  The kernels are compiled with
 # this value (``_build.NVCC_FLAGS``), which sizes their panel-pointer array
 # and is checked there against the shared-memory size, so the factor refuses
@@ -359,7 +378,7 @@ def _check_panel_dims(name: str, B: int, m: int) -> None:
                          "(the caller pads)")
     if m > MAX_M:
         raise ValueError(
-            f"{name}: m={m} exceeds {MAX_M}, the most the pair-solve's shared "
+            f"{name}: m={m} exceeds {MAX_M}, the most the blocked solves' shared "
             "memory holds (larger m needs a solve that tiles r and x: "
             "ROADMAP.md, large single LP)")
     if B < 1 or B > 65535:
@@ -370,11 +389,8 @@ def _panel_launcher(name: str, launch, B: int, m: int):
     """``rows(k, prior, C)`` that launches one panel kernel: ``launch(prior
     pointers, C pointer, k)`` returns the C entry point's code."""
     def rows(k, prior, C):
-        rc = launch(_panel_ptrs(prior), C.data_ptr(), k)
-        if rc != 0:
-            raise RuntimeError(f"{name}: kernel launch failed (code {rc}) "
-                               f"at B={B}, m={m}, k={k}")
-        LAUNCHES[name] += 1
+        _launched(name, launch(_panel_ptrs(prior), C.data_ptr(), k),
+                  f"B={B}, m={m}, k={k}")
 
     return rows
 
@@ -526,8 +542,238 @@ def chol_solve_batched_panels(panels, W: torch.Tensor,
     with torch.cuda.device(b.device):
         rc = fn(_panel_ptrs(panels), W.data_ptr(), b.data_ptr(), x.data_ptr(),
                 B, m, _stream(b))
-    if rc != 0:
-        raise RuntimeError(f"chol_solve_batched_panels: kernel launch failed "
-                           f"(code {rc}) at B={B}, m={m}")
-    LAUNCHES["chol_solve_batched_panels"] += 1
+    _launched("chol_solve_batched_panels", rc, f"B={B}, m={m}")
     return x
+
+
+# --------------------------------------------------------------------------
+# factors and solves over a full (B, m, m) matrix
+# --------------------------------------------------------------------------
+
+def _check_square(name: str, M: torch.Tensor):
+    """M (B, m, m) f32 contiguous, m within the blocked routes' range."""
+    if M.ndim != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"{name}: expected (B, m, m), got {tuple(M.shape)}")
+    if M.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {M.dtype}")
+    B, m, _ = M.shape
+    _check_panel_dims(name, B, m)
+    if not M.is_contiguous():
+        raise ValueError(f"{name}: the matrix must be contiguous")
+    return B, m
+
+
+def _check_solve_args(name: str, F: torch.Tensor, W: torch.Tensor,
+                      b: torch.Tensor):
+    """A factor F (B, m, m), W (B, m / NB, NB, NB) and b (B, m), all f32,
+    contiguous, on one device."""
+    if b.ndim != 2:
+        raise ValueError(f"{name}: b must be (B, m), got {tuple(b.shape)}")
+    if b.dtype != torch.float32:
+        raise TypeError(f"{name}: b must be float32, got {b.dtype}")
+    B, m = b.shape
+    _check_panel_dims(name, B, m)
+    _check_f32("the factor", F, (B, m, m), b)
+    _check_f32("W", W, (B, m // NB, NB, NB), b)
+    if not (F.is_contiguous() and W.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: the factor, W and b must be contiguous")
+    return B, m
+
+
+def panels_of_lt(LT: torch.Tensor) -> tuple:
+    """The panel-major layout of a full ``LT = L^T`` (B, m, m): contiguous
+    copies of ``LT[:, k NB:(k+1) NB, k NB:]``."""
+    m = LT.shape[-1]
+    return tuple(LT[:, o:o + NB, o:].contiguous() for o in range(0, m, NB))
+
+
+def lt_of_panels(panels) -> torch.Tensor:
+    """The full upper-triangular (B, m, m) ``L^T`` whose rows the panels
+    are; zeros elsewhere."""
+    B, _, m = panels[0].shape
+    LT = torch.zeros(B, m, m, dtype=panels[0].dtype, device=panels[0].device)
+    for k, p in enumerate(panels):
+        LT[:, k * NB:(k + 1) * NB, k * NB:] = p
+    return LT
+
+
+def chol_solve_batched_lt_plain(LT, W, b):
+    """:func:`chol_solve_batched_lt` with library matmuls: the panel
+    pair-solve's plain version on the strict-suffix stripes of LT, so the two
+    plain versions give the same bits for the same factor."""
+    return chol_solve_batched_panels_plain(panels_of_lt(LT), W, b)
+
+
+def chol_solve_batched_lt(LT: torch.Tensor, W: torch.Tensor,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Solve ``(L L^T) x = b`` from the transposed factor: LT (B, m, m) =
+    ``L^T``, W (B, m / NB, NB, NB) the inverses of L's diagonal blocks,
+    b (B, m), all f32 -> x (B, m) f32.  Only the strict-suffix stripes
+    ``LT[:, o:o+NB, o+NB:]`` are read: what LT holds on and below the block
+    diagonal plays no part.  The sweeps, the sums and their order are those
+    of :func:`chol_solve_batched_panels`; on the card one launch, any B."""
+    B, m = _check_solve_args("chol_solve_batched_lt", LT, W, b)
+    if not b.is_cuda:
+        return chol_solve_batched_lt_plain(LT, W, b)
+    x = torch.empty_like(b)
+    fn = _entry("solve_panels", "ipx_solve_pair_lt",
+                [_P, _P, _P, _P, _I, _I, _P])
+    with torch.cuda.device(b.device):
+        rc = fn(LT.data_ptr(), W.data_ptr(), b.data_ptr(), x.data_ptr(), B, m,
+                _stream(b))
+    _launched("chol_solve_batched_lt", rc, f"B={B}, m={m}")
+    return x
+
+
+def _bmv(Mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(Mat, v.unsqueeze(-1)).squeeze(-1)
+
+
+def solve_triangular_batched_plain(L, W, b, lower: bool = True):
+    """:func:`solve_triangular_batched` with library matmuls, float32
+    throughout."""
+    m = b.shape[-1]
+    x = torch.zeros_like(b)
+    offsets = range(0, m, NB)
+    for o in (offsets if lower else reversed(offsets)):
+        k, t = o // NB, b[:, o:o + NB]
+        if lower:
+            if o:
+                t = t - _bmv(L[:, o:o + NB, :o], x[:, :o])
+            x[:, o:o + NB] = _bmv(W[:, k], t)
+        else:
+            if o + NB < m:
+                t = t - _bmv(L[:, o + NB:, o:o + NB].mT, x[:, o + NB:])
+            x[:, o:o + NB] = _bmv(W[:, k].mT, t)
+    return x
+
+
+def solve_triangular_batched(L: torch.Tensor, W: torch.Tensor,
+                             b: torch.Tensor,
+                             lower: bool = True) -> torch.Tensor:
+    """One blocked sweep from the untransposed factor: ``L y = b``
+    (``lower=True``: ``y_k = W_k (b_k - L[k, :k] y[:k])``) or ``L^T x = b``
+    (``lower=False``: ``x_k = W_k^T (b_k - L[k+1:, k]^T x[k+1:])``).  L (B, m,
+    m), W (B, m / NB, NB, NB) from :func:`cholesky_batched`, b (B, m), all
+    f32 -> (B, m) f32.  On the card one launch, one block per instance,
+    float64 sums rounded once per entry."""
+    B, m = _check_solve_args("solve_triangular_batched", L, W, b)
+    if not b.is_cuda:
+        return solve_triangular_batched_plain(L, W, b, lower)
+    x = torch.empty_like(b)
+    fn = _entry("solve_panels", "ipx_solve_tri",
+                [_P, _P, _P, _P, _I, _I, _I, _P])
+    with torch.cuda.device(b.device):
+        rc = fn(L.data_ptr(), W.data_ptr(), b.data_ptr(), x.data_ptr(), B, m,
+                int(bool(lower)), _stream(b))
+    _launched("solve_triangular_batched", rc, f"B={B}, m={m}, lower={lower}")
+    return x
+
+
+def factor_lt_batched_plain(M):
+    """:func:`factor_lt_batched` with library matmuls: the plain panel-major
+    factor, its panels laid into a full matrix."""
+    panels, W = factor_lt_panels_plain(M)
+    return lt_of_panels(panels), W
+
+
+def factor_lt_batched(M: torch.Tensor):
+    """Left-looking Cholesky with the transposed factor as output: M (B, m,
+    m) f32, SPD, m a multiple of 128 -> ``(LT, W)``: LT (B, m, m) upper
+    triangular, ``L^T`` (its strict lower triangle exactly zero), and W (B,
+    m / NB, NB, NB) the inverses of L's diagonal blocks: the layout
+    :func:`chol_solve_batched_lt` consumes.  Per panel k, with o = k NB:
+
+        C = M[o:o+NB, o:] - sum_{j<k} LT[jNB:(j+1)NB, o:o+NB]^T LT[jNB:(j+1)NB, o:]
+        L_kk^T, W_k = diag_factor_inv(C[:, :NB])
+        LT[o:o+NB, :] = [0 | L_kk^T | W_k C[:, NB:]]
+
+    three launches on the card (accumulate, diagonal, row panel).  The
+    accumulation is summed as in :func:`factor_lt_panels`."""
+    B, m = _check_square("factor_lt_batched", M)
+    if not M.is_cuda:
+        return factor_lt_batched_plain(M)
+    nb = m // NB
+    kw = dict(dtype=torch.float32, device=M.device)
+    LT = torch.empty(B, m, m, **kw)
+    W = torch.empty(B, nb, NB, NB, **kw)
+    scratch = torch.empty(B * NB * m, **kw)
+    accum = _entry("factor_panels", "ipx_accum_panel_lt",
+                   [_P, _P, _P, _I, _I, _I, _P])
+    rows = _entry("factor_panels", "ipx_lt_rows",
+                  [_P, _P, _P, _I, _I, _I, _P])
+    with torch.cuda.device(M.device):
+        st = _stream(M)
+        for k in range(nb):
+            o, w = k * NB, m - k * NB
+            C = scratch[:B * NB * w].view(B, NB, w)
+            _launched("factor_lt_batched",
+                      accum(M.data_ptr(), LT.data_ptr(), C.data_ptr(), B, m,
+                            k, st), f"B={B}, m={m}, k={k} (accumulate)")
+            diag_factor_inv(C[:, :, :NB], LT[:, o:o + NB, o:o + NB], W[:, k])
+            if nb > 1:
+                _launched("factor_lt_batched",
+                          rows(W.data_ptr(), C.data_ptr(), LT.data_ptr(), B,
+                               m, k, st), f"B={B}, m={m}, k={k} (row panel)")
+    return LT, W
+
+
+def cholesky_batched_plain(M):
+    """:func:`cholesky_batched` with library matmuls: the same right-looking
+    panel steps, float32 throughout."""
+    B, m, _ = M.shape
+    T = M.clone()
+    W = torch.empty(B, m // NB, NB, NB, dtype=M.dtype, device=M.device)
+    for k, o in enumerate(range(0, m, NB)):
+        e = o + NB
+        Lkk, Wk = _factor_block_plain(T[:, o:e, o:e])
+        T[:, o:e, o:e] = Lkk
+        W[:, k] = Wk
+        if e < m:
+            T[:, o:e, e:] = 0.0
+            P = torch.bmm(T[:, e:, o:e], Wk.mT)
+            T[:, e:, o:e] = P
+            T[:, e:, e:] -= torch.bmm(P, P.mT)
+    return T, W
+
+
+def cholesky_batched(M: torch.Tensor):
+    """Right-looking blocked Cholesky: M (B, m, m) f32, SPD (its lower
+    triangle is read), m a multiple of 128 -> ``(L, W)``: L (B, m, m) lower
+    triangular with its strict upper triangle exactly zero, W (B, m / NB, NB,
+    NB) the inverses of its diagonal blocks, which
+    :func:`solve_triangular_batched` consumes.  Per panel k, in a copy T of
+    M: the diagonal tile's factor and inverse, ``T[i, k] = T[i, k] W_k^T``
+    for the tiles below, ``T[i, j] -= T[i, k] T[j, k]^T`` for the tiles
+    ``i >= j > k``: three launches on the card, every product device code
+    of this package.  Each trailing entry is rounded to float32 once per
+    panel."""
+    B, m = _check_square("cholesky_batched", M)
+    if not M.is_cuda:
+        return cholesky_batched_plain(M)
+    nb = m // NB
+    T = M.clone()
+    W = torch.empty(B, nb, NB, NB, dtype=torch.float32, device=M.device)
+    trsm = _entry("cholesky_right", "ipx_right_trsm",
+                  [_P, _P, _I, _I, _I, _P])
+    update = _entry("cholesky_right", "ipx_right_update",
+                    [_P, _I, _I, _I, _P])
+    with torch.cuda.device(M.device):
+        st = _stream(M)
+        for k in range(nb):
+            o = k * NB
+            tile = T[:, o:o + NB, o:o + NB]
+            diag_factor_inv(tile, tile, W[:, k], lower_out=True)
+            if k < nb - 1:
+                _launched("cholesky_batched",
+                          trsm(T.data_ptr(), W.data_ptr(), B, m, k, st),
+                          f"B={B}, m={m}, k={k} (panel TRSM)")
+                _launched("cholesky_batched",
+                          update(T.data_ptr(), B, m, k, st),
+                          f"B={B}, m={m}, k={k} (trailing update)")
+    return T, W
+
+
+def cholesky(M: torch.Tensor) -> torch.Tensor:
+    """One (m, m) matrix through :func:`cholesky_batched`; returns L only."""
+    return cholesky_batched(M.unsqueeze(0))[0][0]

@@ -94,9 +94,13 @@ class SolverOptions:
     # Retry a STALLED / failed dense-route solve with the augmented system.
     augmented_fallback: bool = True
     # "xla" names the library Cholesky (torch.linalg.cholesky_ex and two
-    # triangular solves); "pallas_left" the panel-major factor and
-    # pair-solve kernels of ``ipx_torch.kernels.cholesky``; the other names
-    # are factor backends of ``ipx`` that this package does not carry yet.
+    # triangular solves).  The others are float32-only and solve with the
+    # pair-solve kernels of ``ipx_torch.kernels.cholesky``: "pallas_left"
+    # the panel-major kernel factor (fused with the assembly for a bf16 A),
+    # "panels" the same layout from library products, "pallas" the
+    # right-looking kernel factor, "blocked" / "blocked_left" right- and
+    # left-looking factors from library products, "hybrid" the library
+    # Cholesky with its diagonal blocks inverted afterwards.
     chol_backend: str = "xla"
     # "fused" evaluates the matrix-free normal operator and the KKT
     # refinement right-hand sides with the one-stream kernels of
@@ -176,18 +180,9 @@ def check_ported(opts: SolverOptions) -> None:
         raise NotImplementedError(
             f"linsys={opts.linsys!r} is not ported yet (ROADMAP.md: rescue "
             "ladder for 'augmented*', large single LP for 'sharded*')")
-    if opts.chol_backend not in ("xla", "pallas_left"):
-        raise NotImplementedError(
-            f"chol_backend={opts.chol_backend!r} is not ported yet "
-            "(ROADMAP.md: kernel rows 8-11 with the factor backends that "
-            "call them); use chol_backend='pallas_left' or 'xla'")
     if opts.refactor_period > 1:
         raise NotImplementedError(
             "refactor_period > 1 is not ported yet (ROADMAP.md: "
-            "observability, refactor_period, warm start, CLI)")
-    if opts.cg_operator == "assembled":
-        raise NotImplementedError(
-            "cg_operator='assembled' is not ported yet (ROADMAP.md: "
             "observability, refactor_period, warm start, CLI)")
     if opts.dtype == "bfloat16":
         raise NotImplementedError(

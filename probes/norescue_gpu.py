@@ -14,6 +14,10 @@ gap:
                       panel-major factor and pair-solve kernels
   pallas_left/plain   that route with its factor and solve kernels replaced
                       by their plain versions (float32 library sums)
+  pallas, blocked_left   the same lanes on two backends that keep a full L^T:
+                      the right-looking kernel factor, and the left-looking
+                      factor from library products, both solved by the
+                      full-L^T pair-solve kernel
   plain_kernels       the four kernel wrappers replaced by their plain versions
   chol_f64+trsm_f64   library factor and triangular solves done in float64
   asm_f64, matvec_f64, asm_f64+matvec_f64   the assembly / the A products
@@ -28,8 +32,8 @@ gap:
                       16), on the card and on the host's CPU (plain versions),
                       for a like-for-like pair
 
-``--routes-only`` stops after the first three (the two factor routes side
-by side).  ``--alone K`` then solves the first K lanes that the kernel route
+``--routes-only`` stops after the first five (the factor routes side by
+side).  ``--alone K`` then solves the first K lanes that the kernel route
 left short of OPTIMAL in the batch and its first K OPTIMAL lanes each as a
 batch of one on both routes, prints one line per lane with its four ends
 (batch and alone, either route) and a summary: how often a lane alone ends
@@ -141,7 +145,8 @@ def main() -> int:
     ap.add_argument("--cpu-lanes", type=int, default=16,
                     help="lanes of the card-against-CPU pair (0: skip it)")
     ap.add_argument("--routes-only", action="store_true",
-                    help="only baseline, pallas_left, pallas_left/plain")
+                    help="only baseline, pallas_left, pallas_left/plain, "
+                         "pallas, blocked_left")
     ap.add_argument("--alone", type=int, default=0, metavar="K",
                     help="solve K stalled and K OPTIMAL lanes as batches of "
                          "one on both routes (0: skip)")
@@ -175,6 +180,8 @@ def main() -> int:
         report("pallas_left/plain", run(left))
     finally:
         pk.factor_fused_panels, pk.chol_solve_batched_panels = saved
+    for backend in ("pallas", "blocked_left"):
+        report(backend, run(opts.replace(chol_backend=backend)))
     if args.routes_only:
         return 0
 

@@ -3,9 +3,10 @@
     python3 probes/profile_iter.py [--batch 256] [--m 1024] [--n 2048]
 
 Times the stages of the main path's iteration (bf16-stored A, fused matvecs)
-with CUDA events at a mid-solve iterate on both factor routes: the
+with CUDA events at a mid-solve iterate on three factor routes: the
 panel-major kernels (``chol_backend="pallas_left"``, what ``throughput()``
-names) and the library Cholesky (``"xla"``).  Then traces a few whole steps
+names), the library Cholesky (``"xla"``) and the right-looking kernel factor
+with the full-L^T pair-solve (``"pallas"``).  Then traces a few whole steps
 of each route with ``torch.profiler`` for the device time by kernel name, the
 number of device kernels per step and the share of the step during which the
 device is idle (launch overhead of the eager step).  One JSON line per
@@ -51,6 +52,7 @@ def main() -> int:
     left = ipx_torch.SolverOptions.throughput(
         a_storage="bfloat16", augmented_fallback=False, max_iter=64)
     xla = left.replace(chol_backend="xla")
+    right = left.replace(chol_backend="pallas")
     gen = torch.Generator(device="cuda").manual_seed(0)
     gb = random_feasible_batch_device(args.batch, args.m, args.n, gen,
                                       a_storage="bfloat16")
@@ -59,6 +61,7 @@ def main() -> int:
     for _ in range(args.warm_steps):
         st = mehrotra.step_masked(lp, st, left, fac_aat)
     _, fac_aat_xla = batched.batch_starting_state(lp, xla)
+    _, fac_aat_right = batched.batch_starting_state(lp, right)
     A, d2 = lp.A, (st.x / st.s).contiguous()
     rhs = st.rp.clone()
     B, m = args.batch, args.m
@@ -132,14 +135,36 @@ def main() -> int:
         lambda: [normal_eq._chol_solve(facx, rhs) for _ in range(20)],
         reps=3, warm=1) / 20
     print(json.dumps({"route": "xla", "stage_ms": out}), flush=True)
-    del M, Ms, LT
+    del LT, facx
+
+    # ---- the right-looking kernel factor and the full-L^T pair-solve ---------
+    facr = normal_eq.factor(A, d2, right, reg_scale=st.reg_boost)
+    Lr = facr.LT.mT.contiguous()
+    stages = {
+        "cholesky_batched": lambda: pk.cholesky_batched(Ms),
+        "factor_lt_batched": lambda: pk.factor_lt_batched(Ms),
+        "transpose_l_to_lt": lambda: Lr.mT.contiguous(),
+        "factor_whole": lambda: normal_eq.factor(A, d2, right),
+        "chol_solve_batched_lt": lambda: normal_eq._chol_solve(facr, rhs),
+        "solve_triangular_batched_lower": lambda: pk.solve_triangular_batched(
+            Lr, facr.W, rhs, lower=True),
+        "solve_triangular_batched_upper": lambda: pk.solve_triangular_batched(
+            Lr, facr.W, rhs, lower=False),
+        "solve_cg1": lambda: normal_eq.solve(facr, A, rhs, right),
+        "mehrotra_step": lambda: mehrotra.mehrotra_step(lp, st, right,
+                                                        fac_aat_right),
+    }
+    out = {k: time_ms(f, reps=5, warm=1) for k, f in stages.items()}
+    print(json.dumps({"route": "pallas", "stage_ms": out}), flush=True)
+    del M, Ms, Lr, facr
 
     # whole steps under the profiler: device time by kernel, kernels per
     # step, idle share
     from torch.profiler import ProfilerActivity, profile
     steps = 3
     for route, opts, faat in (("pallas_left", left, fac_aat),
-                              ("xla", xla, fac_aat_xla)):
+                              ("xla", xla, fac_aat_xla),
+                              ("pallas", right, fac_aat_right)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
