@@ -88,11 +88,12 @@ TOL_DIAG_INVERSE = 2e-6
 TOL_DIAG_INVERSE_ILL = 3e-5
 TOL_DIAG_FACTOR = 2e-6
 # The full-matrix factors (same inputs, B = 8) share the panel factors'
-# limits above: against the f64 factor [cholesky_batched 4.6e-5,
-# factor_lt_batched 5.8e-5; the plain versions 6.6e-5, 6.4e-5], against their
-# plain versions [6.4e-5, 7.7e-5], ||L L^T - Ms|| / ||Ms|| [7.3e-7, 8.3e-7],
-# ||W L - I|| [2.4e-7].  So do their solves: the pair-solve from a full L^T
-# against an f64 solve with the same factor [3.2e-4; plain 1.8e-3], backward
+# limits above against the f64 factor [cholesky_batched 4.6e-5,
+# factor_lt_batched 5.8e-5; the plain versions 6.6e-5, 6.4e-5], on
+# ||L L^T - Ms|| / ||Ms|| [7.3e-7, 8.3e-7] and on ||W L - I|| [2.4e-7]; against
+# their plain versions [6.4e-5, 7.7e-5] they have a limit of their own
+# (TOL_LT_PLAIN).  Their solves share the panel pair-solve's limits: the
+# pair-solve from a full L^T against an f64 solve with the same factor [3.2e-4; plain 1.8e-3], backward
 # error [3.7e-7]; two one-sweep solves [3.2e-4; plain 2.9e-3], [3.8e-7]; the
 # lower sweep alone [9.6e-7; plain 1.3e-5]; m = 4864, one instance, backward
 # error against the f32 matrix [2.2e-7, 2.1e-7].
@@ -100,15 +101,18 @@ TOL_DIAG_FACTOR = 2e-6
 # diagonal tile and W_0 bit for bit, the rest to rounding (another product
 # behind the panel TRSM), relative to the factor's largest entry [4.6e-5]
 TOL_LT_VS_PANELS = 4e-4
+# cholesky_batched and factor_lt_batched against their plain versions,
+# relative to the factor's largest entry [6.4e-5, 7.7e-5]
+TOL_LT_PLAIN = 6e-4
 # the pair-solve from L^T against two one-sweep solves from L, same factor,
 # relative to the solution's largest entry [5.9e-6]
 TOL_TWO_SWEEPS = 5e-5
 # kernel_api at B = 256: backward error of the two factor-then-solve paths
-# against the f32 matrix they factored [3.5e-6, 2.8e-6], and their solutions
-# against an f64 factor and solve of it, relative to the largest entry
-# [1.5e-2, 1.0e-2: condition x eps on these mid-solve matrices]
+# against the f32 matrix they factored [3.5e-6, 2.8e-6].  Their solutions
+# against an f64 factor and solve of it are printed and held to nothing: the
+# forward error is condition x eps on these mid-solve matrices [1.5e-2,
+# 1.0e-2 of the largest entry] and says little about the kernels
 TOL_API_BACKWARD = 3e-5
-TOL_API_FORWARD = 1e-1
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS = 67e12                   # H100 SXM, float32 outside tensor cores
 DEV = "cuda"
@@ -498,9 +502,11 @@ def _mx(t: torch.Tensor) -> float:
     return float(t.abs().max())
 
 
-def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks) -> float:
+def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks,
+              tol_plain=TOL_PANELS_PLAIN) -> float:
     """A kernel factor as (LT (B, m, m) = L^T, W) against the plain version's
-    LT and the f64 Cholesky of Ms64; returns the largest |kernel - plain|."""
+    LT (within tol_plain) and the f64 Cholesky of Ms64; returns the largest
+    |kernel - plain|."""
     L64 = torch.linalg.cholesky(Ms64)
     scale = _mx(L64)
     if not bool(torch.isfinite(LTg).all()) or not bool(torch.isfinite(Wg).all()):
@@ -518,10 +524,10 @@ def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks) -> float:
     checks[label] = {"rel_err_vs_f64": vs_f64, "plain_vs_f64": plain_vs_f64,
                      "rel_err_vs_plain": abs_plain / scale,
                      "reconstruction": rec, "w_l_minus_i": winv}
-    if vs_f64 > TOL_PANELS_F64 or abs_plain / scale > TOL_PANELS_PLAIN \
+    if vs_f64 > TOL_PANELS_F64 or abs_plain / scale > tol_plain \
             or rec > TOL_RECONSTRUCT or winv > TOL_DIAG_INVERSE:
         fail(phase, f"{label}: {checks[label]} (tolerances "
-             f"{TOL_PANELS_F64}, {TOL_PANELS_PLAIN}, {TOL_RECONSTRUCT}, "
+             f"{TOL_PANELS_F64}, {tol_plain}, {TOL_RECONSTRUCT}, "
              f"{TOL_DIAG_INVERSE})")
     return abs_plain
 
@@ -899,13 +905,14 @@ def phase_lt_kernels(rows: dict) -> None:
     Lp, _ = pk.cholesky_batched_plain(Ms32)
     rows["cholesky_batched"]["max_abs_err"] = _check_lt(
         phase, "right/f32", L.mT, W9, Lp.mT, Ms32_64,
-        checks["cholesky_batched"])
+        checks["cholesky_batched"], tol_plain=TOL_LT_PLAIN)
     if _mx(torch.triu(L, 1)) != 0.0:
         fail(phase, "cholesky_batched: strict upper triangle not exactly 0")
     LT, W10 = pk.factor_lt_batched(Ms32)
     LTpl, _ = pk.factor_lt_batched_plain(Ms32)
     rows["factor_lt_batched"]["max_abs_err"] = _check_lt(
-        phase, "lt/f32", LT, W10, LTpl, Ms32_64, checks["factor_lt_batched"])
+        phase, "lt/f32", LT, W10, LTpl, Ms32_64, checks["factor_lt_batched"],
+        tol_plain=TOL_LT_PLAIN)
     if _mx(torch.tril(LT, -1)) != 0.0:
         fail(phase, "factor_lt_batched: strict lower triangle not exactly 0")
     # against the panel-major factor of the same matrix: the accumulation is
@@ -1017,15 +1024,23 @@ def phase_lt_kernels(rows: dict) -> None:
         rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
         rows[name].update(extra)
 
+    def diag_launches(kern) -> int:
+        """Launches of the diagonal-block kernel inside one call of kern."""
+        before = pk.LAUNCHES["diag_factor_inv"]
+        kern()
+        return pk.LAUNCHES["diag_factor_inv"] - before
+
     # the same function in one library call, for both factors
     chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(Ms, check_errors=False),
                       reps=5, warm=1)
     set_times("cholesky_batched", lambda: pk.cholesky_batched(Ms),
               lambda: pk.cholesky_batched_plain(Ms), library_ms=chol_ms,
-              diag_launches_inside=M_ROWS // NB)
+              diag_launches_inside=diag_launches(
+                  lambda: pk.cholesky_batched(Ms)))
     set_times("factor_lt_batched", lambda: pk.factor_lt_batched(Ms),
               lambda: pk.factor_lt_batched_plain(Ms), library_ms=chol_ms,
-              diag_launches_inside=M_ROWS // NB,
+              diag_launches_inside=diag_launches(
+                  lambda: pk.factor_lt_batched(Ms)),
               # the panel-major factor of the same matrix, same run
               factor_lt_panels_ms=time_ms(lambda: pk.factor_lt_panels(Ms),
                                           reps=5, warm=1))
@@ -1058,7 +1073,7 @@ def phase_lt_kernels(rows: dict) -> None:
     torch.cuda.empty_cache()
     emit(phase, ok=True, batch_check=B_CHECK, batch_timed=B_MAIN, m=M_ROWS,
          tolerances=dict(factor_vs_f64=TOL_PANELS_F64,
-                         factor_vs_plain=TOL_PANELS_PLAIN,
+                         factor_vs_plain=TOL_LT_PLAIN,
                          reconstruction=TOL_RECONSTRUCT,
                          lt_vs_panels=TOL_LT_VS_PANELS,
                          solve_vs_f64=TOL_SOLVE_F64,
@@ -1108,14 +1123,13 @@ def phase_kernel_api() -> dict:
             "rel_err_vs_f64": _mx(x.double() - x64) / _mx(x64)}
     problems = []
     for name, r in res.items():
-        if not (r["backward_error"] <= TOL_API_BACKWARD
-                and r["rel_err_vs_f64"] <= TOL_API_FORWARD):
+        if not r["backward_error"] <= TOL_API_BACKWARD:
             problems.append(f"{name}: {r}")
     if any(launched[k] == 0 for k in PATH_KERNELS["kernel_api"]):
         problems.append(f"a kernel of the path was never launched: {launched}")
     emit(phase, ok=not problems, batch=B_MAIN, m=M_ROWS,
          seconds=round(secs, 3), launches=launched,
-         tolerances=dict(backward=TOL_API_BACKWARD, forward=TOL_API_FORWARD),
+         tolerances=dict(backward=TOL_API_BACKWARD),
          **res)
     if problems:
         fail(phase, "; ".join(problems))

@@ -238,55 +238,39 @@ def _factor_blocked(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
                           M=M if keep_m else None)
 
 
-def _diag_blocks(CD: torch.Tensor, out: torch.Tensor, lower_out: bool):
-    """Factor of a batch of nb x nb diagonal blocks (lower triangle read)
-    written into the view ``out`` (L if ``lower_out``, else L^T); returns the
-    blocks' inverses.  At nb = 128 the diagonal kernel of
-    ``kernels.cholesky``, else the library factor with
-    :func:`_invert_lower_blocks`."""
-    if CD.shape[-1] == pk.NB:
-        return pk.diag_factor_inv(CD, out, lower_out=lower_out)[1]
-    Ld = torch.linalg.cholesky(torch.tril(CD) + torch.tril(CD, -1).mT)
-    out.copy_(Ld if lower_out else Ld.mT)
-    return _invert_lower_blocks(Ld)
-
-
 def _w_of(ldiag, B: int, m: int) -> torch.Tensor:
     """The (B, m / 128, 128, 128) inverses of the 128-blocks on the diagonal
     of a lower factor, ``ldiag(o)`` being the (B, 128, 128) block at offset
-    o: the solves consume 128-blocks whatever the factor's panel width."""
+    o."""
     nblk = m // pk.NB
     blocks = torch.stack([ldiag(o) for o in range(0, m, pk.NB)], dim=1)
     return _invert_lower_blocks(blocks.reshape(B * nblk, pk.NB, pk.NB)
                                 ).reshape(B, nblk, pk.NB, pk.NB)
 
 
-def _blocked_potrf(Ms: torch.Tensor, nb: int = 128, precision=None):
-    """Right-looking blocked Cholesky with library products: Ms (B, m, m)
-    -> (L, W), W the (B, m/128, 128, 128) inverses of L's diagonal blocks,
-    at nb = 128 a by-product of the panel steps.  Per panel: the diagonal
-    block's factor and inverse, the panel TRSM as a product with the
-    inverse, the trailing update.  ``precision`` is accepted and ignored:
-    every product here is IEEE float32."""
-    del precision
+def _blocked_potrf(Ms: torch.Tensor):
+    """Right-looking blocked Cholesky with library products, panels of 128:
+    Ms (B, m, m) -> (L, W), W the (B, m/128, 128, 128) inverses of L's
+    diagonal blocks, a by-product of the panel steps.  Per panel: the
+    diagonal block's factor and inverse, the panel TRSM as a product with
+    the inverse, the trailing update."""
     B, m, _ = Ms.shape
+    nb = pk.NB
     L = torch.zeros(B, m, m, dtype=Ms.dtype, device=Ms.device)
-    winvs = []
+    W = torch.empty(B, m // nb, nb, nb, dtype=Ms.dtype, device=Ms.device)
     T = Ms
-    for o in range(0, m, nb):
+    for k, o in enumerate(range(0, m, nb)):
         e = o + nb
-        Wd = _diag_blocks(T[:, :nb, :nb], L[:, o:e, o:e], True)
-        winvs.append(Wd)
+        pk.diag_factor_inv(T[:, :nb, :nb], L[:, o:e, o:e], W[:, k],
+                           lower_out=True)
         if e < m:
-            P = torch.bmm(T[:, nb:, :nb], Wd.mT)
+            P = torch.bmm(T[:, nb:, :nb], W[:, k].mT)
             L[:, e:, o:e] = P
             T = T[:, nb:, nb:] - torch.bmm(P, P.mT)
-    if nb == pk.NB:
-        return L, torch.stack(winvs, dim=1)
-    return L, _w_of(lambda o: L[:, o:o + pk.NB, o:o + pk.NB], B, m)
+    return L, W
 
 
-def _blocked_potrf_left(Ms: torch.Tensor, nb: int = 128, precision=None):
+def _blocked_potrf_left(Ms: torch.Tensor):
     """Left-looking blocked Cholesky returning the TRANSPOSED factor:
     Ms (B, m, m) -> (LT, W) with ``LT = L^T``, the layout the pair-solve
     consumes.  Updates are deferred: each panel reads the original row panel
@@ -297,22 +281,19 @@ def _blocked_potrf_left(Ms: torch.Tensor, nb: int = 128, precision=None):
 
     so every product lands in LT's row panel with no transposition (Ms is
     symmetric: its row panel is the column panel transposed)."""
-    del precision
     B, m, _ = Ms.shape
+    nb = pk.NB
     LT = torch.zeros(B, m, m, dtype=Ms.dtype, device=Ms.device)
-    winvs = []
-    for o in range(0, m, nb):
+    W = torch.empty(B, m // nb, nb, nb, dtype=Ms.dtype, device=Ms.device)
+    for k, o in enumerate(range(0, m, nb)):
         e = o + nb
         Ct = Ms[:, o:e, o:]
         if o:
             Ct = Ct - torch.bmm(LT[:, :o, o:e].mT, LT[:, :o, o:])
-        Wd = _diag_blocks(Ct[:, :, :nb], LT[:, o:e, o:e], False)
-        winvs.append(Wd)
+        pk.diag_factor_inv(Ct[:, :, :nb], LT[:, o:e, o:e], W[:, k])
         if e < m:
-            torch.bmm(Wd, Ct[:, :, nb:], out=LT[:, o:e, e:])
-    if nb == pk.NB:
-        return LT, torch.stack(winvs, dim=1)
-    return LT, _w_of(lambda o: LT[:, o:o + pk.NB, o:o + pk.NB].mT, B, m)
+            torch.bmm(W[:, k], Ct[:, :, nb:], out=LT[:, o:e, e:])
+    return LT, W
 
 
 def _blocked_potrf_left_panels(Ms: torch.Tensor):

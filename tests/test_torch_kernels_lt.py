@@ -24,10 +24,27 @@ from ipx_torch.kernels import cholesky as tpk
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_blas_on_one_thread():
+    """numpy's BLAS spins its eight threads against the other test workers'
+    (a 384 x 384 QR takes 9 s instead of 0.03 s on a busy machine); one
+    thread for this module's tests, where threadpoolctl is installed."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        yield
+        return
+    with threadpool_limits(limits=1):
+        yield
+
 NB = tpk.NB
-SHAPES = [(1, 128), (3, 128), (1, 256), (3, 256), (1, 384), (3, 384)]
-# the solves: every m and every B once (each case is one more JAX compile)
-SOLVE_SHAPES = [(1, 128), (3, 256), (1, 384), (3, 384)]
+# every m and every B, not every pair: each (B, m) is one more trace and
+# compile of the interpret-mode kernels on the JAX side, which is nearly all
+# of this file's time
+SHAPES = [(1, 128), (3, 128), (3, 256), (1, 384)]
+# the solves reuse the factors compiled for SHAPES
+SOLVE_SHAPES = [(1, 128), (3, 256), (1, 384)]
 
 
 def _random_spd(B, m, seed, cond=100.0):

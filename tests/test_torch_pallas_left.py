@@ -33,6 +33,20 @@ from ipx_torch.problem.lp import make_lp as tmake_lp
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_blas_on_one_thread():
+    """numpy's BLAS spins its eight threads against the other test workers'
+    (a 384 x 384 QR takes 9 s instead of 0.03 s on a busy machine); one
+    thread for this module's tests, where threadpoolctl is installed."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        yield
+        return
+    with threadpool_limits(limits=1):
+        yield
+
 PL = dict(chol_backend="pallas_left", matvec_backend="fused", refine_steps=1)
 
 
