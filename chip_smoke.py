@@ -5,7 +5,9 @@
 
 Builds the CUDA kernels from ``ipx_torch/csrc`` with nvcc, holds each kernel
 against its plain PyTorch version and an f64 oracle at the main path's
-shapes (m=1024, n=2048), times each beside its bound, then drives the paths
+shapes (m=1024, n=2048), times each beside its bound (matrix products at the
+tensor-core rate of an f32-faithful bf16 split, the float32 CUDA-core figure
+beside it), then drives the paths
 through the public entry points: ``ipx_torch.solve_batch`` on B=256 distinct
 bf16-stored instances under ``SolverOptions.throughput()`` as it stands
 (``chol_backend="pallas_left"``: fused assemble+factor panels, diagonal
@@ -61,14 +63,16 @@ TOL_PLAIN = 1e-5    # kernel vs plain version (one f32 matmul), same scale:
 # measured value is in brackets) and at most 10x that.
 # Panels against the f64 Cholesky factor of the f64 scaled regularised matrix,
 # relative to the factor's largest entry: the forward error of an f32 factor,
-# condition x eps [7.7e-5 fused, 6.8e-5 from the assembled matrix; the plain
-# versions 2.3e-4 and 6.4e-5]
+# condition x eps [5.3e-5 fused on the tensor cores (7.7e-5 on the CUDA
+# cores before), 6.8e-5 from the assembled matrix; the plain versions 2.3e-4
+# and 6.4e-5]
 TOL_PANELS_F64 = 5e-4
 # kernel panels against the plain version's: two f32 factors of one
 # ill-conditioned matrix [2.2e-4]
 TOL_PANELS_PLAIN = 2e-3
 # ||L L^T - Ms|| / ||Ms|| (max norms), the factor's backward error, which does
-# not grow with the condition [9.6e-7]
+# not grow with the condition [9.0e-7 fused on the tensor cores, 9.6e-7 on
+# the CUDA cores before]
 TOL_RECONSTRUCT = 5e-6
 # Pair-solve against an f64 solve WITH THE SAME f32 FACTOR, relative to the
 # solution's largest entry: y, r and x are rounded to f32 once per entry and
@@ -115,10 +119,16 @@ TOL_TWO_SWEEPS = 5e-5
 TOL_API_BACKWARD = 3e-5
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS = 67e12                   # H100 SXM, float32 outside tensor cores
+BF16_TC_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
+# An f32-faithful product on bf16 tensor cores takes several passes: an f32
+# operand against a bf16 one three (the exact split of the f32 side), two f32
+# operands six (bf16x6).  The matrix-product rows are bounded at that rate:
+# the least time the card could take for the same work.
+ASM_PASSES, CHOL_PASSES = 3, 6
 DEV = "cuda"
 # Without the rescue ladder (not ported yet) a float32 lane may stop short
 # of OPTIMAL; at least half of the batch has to get there (measured on an
-# H100 with these seeds: 203 of 256 on the kernel route, 202 of 256 on
+# H100 with these seeds: 214 of 256 on the kernel route, 202 of 256 on
 # "pallas", 49 of 64 on the library route, 45 to 54 of 64 on the other
 # backends, 11 of 16 at m = 1000), and every OPTIMAL lane is held to the full
 # contract.
@@ -153,6 +163,7 @@ NEAR_MISS_GAP = 1e-5
 EARLY_ITERS = 6
 EARLY_TOL = 1e-3
 
+N_RAGGED = 2045     # an n whose A rows are not 16-byte aligned
 B_XLA = 64          # batch of the library-Cholesky path and of the backends
                     # that share the pair-solve kernels with the wide paths
 B_PADDED = 16       # batch of the padded path
@@ -165,7 +176,7 @@ KERNELS = {
     "at_matvec": ("ipx_torch/csrc/fused_matvec.cu", "ipx/kernels/fused.py:161"),
     "assemble_sym_batched": ("ipx_torch/csrc/assemble_sym.cu",
                              "ipx/kernels/cholesky.py:1399"),
-    "factor_fused_panels": ("ipx_torch/csrc/factor_panels.cu",
+    "factor_fused_panels": ("ipx_torch/csrc/fused_panel.cu",
                             "ipx/kernels/cholesky.py:1522"),
     # no TPU kernel: the XLA glue between the panel kernels' calls
     "diag_factor_inv": ("ipx_torch/csrc/factor_panels.cu",
@@ -335,30 +346,53 @@ def _calls(A, v, w, beta, alpha):
     }
 
 
-def _bounds(B: int, itemsize: int) -> dict:
-    """name -> (bound_ms, bound_by): the larger of bytes over the memory
-    rate (each input read once, each output written once) and float32
-    operations over the CUDA-core rate."""
+def _bound(nbytes: float, flops: float, asm_flops: float = 0.0,
+           chol_flops: float = 0.0) -> dict:
+    """The least time for the work: the larger of bytes over the memory rate
+    and operations over the card's rate for their type.  ``flops`` are
+    float32 operations at the CUDA-core rate; ``asm_flops`` and
+    ``chol_flops`` are matrix products at the bf16 tensor-core rate,
+    ASM_PASSES and CHOL_PASSES times over."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (flops / F32_FLOPS + (ASM_PASSES * asm_flops
+                               + CHOL_PASSES * chol_flops) / BF16_TC_FLOPS) * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def _f32_cuda_core_ms(nbytes: float, flops: float, asm_flops: float = 0.0,
+                      chol_flops: float = 0.0) -> float:
+    """The same work as ``_bound`` with every product on the CUDA cores in
+    float32: the yardstick of the kernels before the tensor cores, printed
+    apart from the ``kernels`` line (phase ``bounds``)."""
+    return max(nbytes / HBM_BYTES_PER_S,
+               (flops + asm_flops + chol_flops) / F32_FLOPS) * 1e3
+
+
+def _matvec_work(B: int, itemsize: int) -> dict:
+    """name -> (bytes, f32 flops at the CUDA-core rate, tensor-core flops of
+    the assembly) of the phase-``kernels`` rows: each input read once, each
+    output written once."""
     m, n = M_ROWS, N_COLS
     a_bytes = B * m * n * itemsize
     vec = lambda k: 4 * B * k
-    work = {
+    return {
         "ata_apply": (a_bytes + vec(m) + 3 * vec(n) + vec(m) + vec(n),
-                      4 * B * m * n),
-        "a_matvec": (a_bytes + vec(n) + vec(m), 2 * B * m * n),
-        "at_matvec": (a_bytes + vec(m) + vec(n), 2 * B * m * n),
+                      4 * B * m * n, 0),
+        "a_matvec": (a_bytes + vec(n) + vec(m), 2 * B * m * n, 0),
+        "at_matvec": (a_bytes + vec(m) + vec(n), 2 * B * m * n, 0),
         # the lower triangle with its diagonal: m (m + 1) / 2 entries of M,
-        # one FMA (2 flops) per entry and column of A.  (The kernel's 128
+        # one product (2 flops) per entry and column of A.  (The kernel's 128
         # tiles compute whole diagonal tiles, m (m + 128) / 2 entries; that
         # surplus is the kernel's, not the function's.)
-        "assemble_sym_batched": (a_bytes + vec(n) + 4 * B * m * m,
+        "assemble_sym_batched": (a_bytes + vec(n) + 4 * B * m * m, 0,
                                  2 * B * (m * (m + 1) // 2) * n),
     }
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
-    return out
+
+
+def _bounds(B: int, itemsize: int) -> dict:
+    """name -> bound fields (``_bound``) of the phase-``kernels`` rows."""
+    return {name: _bound(*w) for name, w in _matvec_work(B, itemsize).items()}
 
 
 def _refuses_oversize_rows() -> str | None:
@@ -384,6 +418,47 @@ def _refuses_oversize_rows() -> str | None:
             continue
         return f"{name} took m={m} on the card instead of refusing it"
     return None if dict(fk.LAUNCHES) == before else "a refused call counted"
+
+
+def _check_odd_shapes(rows: dict) -> None:
+    """The matvecs off the main path's shape, held against the plain version
+    and f64 like the other modes, bf16 and f32: at n = N_RAGGED
+    (``ata_apply``) rows that are not 16-byte aligned are staged element by
+    element and the last stripe is ragged; at m = M_PADDED (all three) the
+    copy chunks are ceil(m / 8) rows, the last one short, and the rows'
+    swizzle runs over a count that is not a multiple of 8.  t of
+    ``ata_apply`` is again the bits of ``at_matvec``."""
+    cuts = ((f"n{N_RAGGED}", M_ROWS, N_RAGGED, ("ata_apply",)),
+            (f"m{M_PADDED}", M_PADDED, N_COLS, _MATVECS))
+    for a_dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for cut, m, n, names in cuts:
+            A, v, w, beta, alpha = _inputs(B_CHECK, a_dtype, seed=8)
+            A, v = A[:, :m, :n].contiguous(), v[:, :m].contiguous()
+            w, beta, alpha = (x[:, :n].contiguous() for x in (w, beta, alpha))
+            refs = _f64_refs(A, v, w, beta, alpha)
+            calls = _calls(A, v, w, beta, alpha)
+            for name in names:
+                kern, plain = calls[name]
+                got, ref_plain = kern(), plain()
+                torch.cuda.synchronize()
+                label = f"{name}/{cut}/{tag}"
+                if any(g.shape != r.shape or not bool(torch.isfinite(g).all())
+                       for g, r in zip(got, refs[name])):
+                    fail("kernels", f"{label}: bad shape or non-finite")
+                worst_plain = max(_mx(g - p) / _mx(r) for g, p, r
+                                  in zip(got, ref_plain, refs[name]))
+                worst_f64 = max(_mx(g.double() - r) / _mx(r)
+                                for g, r in zip(got, refs[name]))
+                rows[name]["checks"][label] = {"rel_err_vs_plain": worst_plain,
+                                               "rel_err_vs_f64": worst_f64}
+                if worst_plain > TOL_PLAIN or worst_f64 > TOL_F64:
+                    fail("kernels", f"{label}: rel err vs plain "
+                         f"{worst_plain:.3e}, vs f64 {worst_f64:.3e} "
+                         f"(tolerances {TOL_PLAIN}, {TOL_F64})")
+                if name == "ata_apply" and \
+                        not torch.equal(got[1], fk.at_matvec(A, v)):
+                    fail("kernels", f"{label}: t differs from at_matvec")
+            del A, refs, calls
 
 
 def phase_kernels() -> dict:
@@ -420,6 +495,10 @@ def phase_kernels() -> dict:
                 # at_matvec launch of the same kernel reproduces it exactly
                 if not torch.equal(got[1], fk.at_matvec(args[0], args[1])):
                     fail("kernels", f"{label}: t differs from at_matvec")
+                # no atomics: a second launch on the same inputs gives the
+                # same bits
+                if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+                    fail("kernels", f"{label}: two launches differ")
             rows[name]["checks"][label] = {
                 "rel_err_vs_plain": worst_plain, "rel_err_vs_f64": worst_f64}
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -429,6 +508,7 @@ def phase_kernels() -> dict:
                      f"{worst_plain:.3e}, vs f64 {worst_f64:.3e} "
                      f"(tolerances {TOL_PLAIN}, {TOL_F64})")
         del args, refs
+    _check_odd_shapes(rows)
     wrong = _refuses_oversize_rows()
     if wrong:
         fail("kernels", wrong)
@@ -442,7 +522,7 @@ def phase_kernels() -> dict:
             continue
         rows[name]["ms"] = time_ms(kern)
         rows[name]["plain_ms"] = time_ms(plain, reps=3, warm=1)
-        rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+        rows[name].update(bounds[name])
     # library yardsticks: ONE PyTorch call of the same product.  torch.bmm
     # takes no mixed types, so it gets a float32 copy of A made outside the
     # timed region (it reads twice the bytes).  ata_apply is two dependent
@@ -603,12 +683,13 @@ def _check_solve(label, panels, W, b, checks) -> float:
         checks)
 
 
-def _panel_bounds(B: int) -> dict:
-    """Bounds of the panel kernels at (B, M_ROWS, N_COLS), as ``_bounds``:
-    inputs read once, outputs written once, float32 operations at the
-    CUDA-core rate.  The factors' rows count one whole factor (m / NB panel
-    launches, the diagonal blocks and the panel TRSM with them, as the
-    wrapper is timed); the pair-solve's one apply."""
+def _panel_work(B: int) -> dict:
+    """Work of the panel kernels at (B, M_ROWS, N_COLS), as ``_matvec_work``:
+    inputs read once, outputs written once; the factors' products at the
+    tensor-core rate (the assembly three passes, the Cholesky work six), the
+    rest in float32 at the CUDA-core rate.  The factors' rows count one
+    whole factor (m / NB panel launches, the diagonal blocks and the panel
+    TRSM with them, as the wrapper is timed); the pair-solve's one apply."""
     m, n, nb = M_ROWS, N_COLS, M_ROWS // NB
     panels = 4 * B * m * (m + NB) // 2          # block lower triangle, f32
     w_out = 4 * B * nb * NB * NB
@@ -617,33 +698,37 @@ def _panel_bounds(B: int) -> dict:
     asm = (m * (m + 1) // 2) * n
     chol = m ** 3 // 6 + nb * NB ** 3 // 6
     factor_io = 4 * B * m * (m - NB) // 2 + w_out          # suffixes, W
-    work = {
+    # name -> (bytes, f32 flops at the CUDA-core rate, tensor-core flops of
+    # the assembly, of the Cholesky work)
+    return {
         "factor_fused_panels": (2 * B * m * n + 4 * B * (n + m + 1)
-                                + panels + w_out, 2 * B * (asm + chol)),
+                                + panels + w_out, 0, 2 * B * asm,
+                                2 * B * chol),
         # the block lower triangle of M in, panels and W out
-        "factor_lt_panels": (2 * panels + w_out, 2 * B * chol),
+        "factor_lt_panels": (2 * panels + w_out, 0, 0, 2 * B * chol),
         # tile in, L^T and W out; NB^3 / 6 FMAs for the factor and again for
         # the inverse, a sequential chain in each block: latency, not these
         # rates, is what limits it
-        "diag_factor_inv": (3 * 4 * B * NB * NB, 2 * B * 2 * NB ** 3 // 6),
+        "diag_factor_inv": (3 * 4 * B * NB * NB, 2 * B * 2 * NB ** 3 // 6,
+                            0, 0),
         "chol_solve_batched_panels": (factor_io + 2 * 4 * B * m,
-                                      2 * 2 * (factor_io // 4)),
+                                      2 * 2 * (factor_io // 4), 0, 0),
         # the same function from a full L^T: the strict block triangle and W
         # are all it needs of it
         "chol_solve_batched_lt": (factor_io + 2 * 4 * B * m,
-                                  2 * 2 * (factor_io // 4)),
+                                  2 * 2 * (factor_io // 4), 0, 0),
         # one sweep: the same bytes, each met once
         "solve_triangular_batched": (factor_io + 2 * 4 * B * m,
-                                     2 * (factor_io // 4)),
+                                     2 * (factor_io // 4), 0, 0),
         # the block lower triangle of M in, of the factor out, and W
-        "cholesky_batched": (2 * panels + w_out, 2 * B * chol),
-        "factor_lt_batched": (2 * panels + w_out, 2 * B * chol),
+        "cholesky_batched": (2 * panels + w_out, 0, 0, 2 * B * chol),
+        "factor_lt_batched": (2 * panels + w_out, 0, 0, 2 * B * chol),
     }
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
-    return out
+
+
+def _panel_bounds(B: int) -> dict:
+    """name -> bound fields (``_bound``) of the panel kernels' rows."""
+    return {name: _bound(*w) for name, w in _panel_work(B).items()}
 
 
 def phase_panel_kernels(rows: dict) -> None:
@@ -746,7 +831,7 @@ def phase_panel_kernels(rows: dict) -> None:
     def set_times(name, kern, plain, **extra):
         rows[name]["ms"] = time_ms(kern, reps=5, warm=1)
         rows[name]["plain_ms"] = time_ms(plain, reps=2, warm=1)
-        rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+        rows[name].update(bounds[name])
         rows[name].update(extra)
 
     panels, W = pk.factor_fused_panels(A, d2, j, reg)
@@ -760,13 +845,24 @@ def phase_panel_kernels(rows: dict) -> None:
 
     trsm_ms = time_ms(panel_trsms, reps=5, warm=1)
     del dst
+    scratch = torch.empty(B_MAIN * NB * M_ROWS, device=DEV)
+
+    def panel_stages():
+        # the m / NB panel launches alone, on the factor's own prior panels
+        stage = pk._fused_panel_rows(A, d2, j, reg)
+        for k in range(nb):
+            w = M_ROWS - k * NB
+            stage(k, panels[:k], scratch[:B_MAIN * NB * w].view(B_MAIN, NB, w))
+
+    panels_ms = time_ms(panel_stages, reps=5, warm=1)
+    del scratch
     xla_opts = slice_options(chol_backend="xla")
     set_times("factor_fused_panels",
               lambda: pk.factor_fused_panels(A, d2, j, reg),
               lambda: pk.factor_fused_panels_plain(A, d2, j, reg),
               # no one library call computes it; the route it replaces is
               # assemble + scale + reg I + cholesky_ex, timed here
-              library_ms=None, trsm_bmm_ms=trsm_ms,
+              library_ms=None, panels_ms=panels_ms, trsm_bmm_ms=trsm_ms,
               library_route_ms=time_ms(
                   lambda: normal_eq.factor(A, d2, xla_opts), reps=5, warm=1))
 
@@ -1021,7 +1117,7 @@ def phase_lt_kernels(rows: dict) -> None:
     def set_times(name, kern, plain, **extra):
         rows[name]["ms"] = time_ms(kern, reps=5, warm=1)
         rows[name]["plain_ms"] = time_ms(plain, reps=2, warm=1)
-        rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+        rows[name].update(bounds[name])
         rows[name].update(extra)
 
     def diag_launches(kern) -> int:
@@ -1383,6 +1479,11 @@ def main() -> int:
                                if name in PATH_KERNELS[p])
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         out.append(row)
+    # the rows with matrix products, counted at the float32 CUDA-core rate
+    work = {**_matvec_work(B_MAIN, 2), **_panel_work(B_MAIN)}
+    emit("bounds", batch=B_MAIN, f32_cuda_core_ms={
+        name: _f32_cuda_core_ms(*w) for name, w in work.items()
+        if any(w[2:])})
     print(json.dumps({"kernels": out}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(card, flush=True)

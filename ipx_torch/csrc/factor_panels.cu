@@ -11,17 +11,14 @@
 // Per panel k the caller runs
 //
 //   C_k = (start tile row) - sum_{j<k} P_j[:, o-jNB : o-jNB+NB]^T P_j[:, o-jNB:]
-//         fused_panel / accum_panel below, o = k NB
+//         accum_panel below (fused_panel.cu for a bf16 A), o = k NB
 //   L_D^T, W_D = diag_factor_inv(C_k[:, :NB])
 //   panels[k] = [L_D^T | W_D C_k[:, NB:]]        a library product outside
 //
-// fused_panel replaces the Pallas kernel _fused_panel_kernel of
-// ipx/kernels/cholesky.py (entry factor_fused_panels): the start tile is
-// assembled from the bf16-stored A,
-//   J_r (A_k * d2) A_{k:}^T J_c  +  reg on the diagonal of the diagonal tile,
-// so the scaled, regularised normal matrix is never written to device memory.
-// accum_panel replaces _accum_panel_kernel (entry factor_lt_panels): the start
-// tile is read from an assembled, scaled, regularised matrix Ms.
+// accum_panel replaces _accum_panel_kernel of ipx/kernels/cholesky.py (entry
+// factor_lt_panels): the start tile is read from an assembled, scaled,
+// regularised matrix Ms.  (The fused form, which assembles the start tile
+// from a bf16 A on the tensor cores, is fused_panel.cu.)
 // The full-L^T factor replaces _factor_lt_kernel (entry factor_lt_batched),
 // which keeps the diagonal chain and the panel TRSM inside its body: here
 // accum_panel reads the prior rows from LT itself (the same kernel body over
@@ -35,41 +32,32 @@
 // PyTorch that chain is some 1,800 tiny launches a panel, so here it is one
 // kernel.
 //
-// Bound on this card: operations.  The assembly is m (m + 1) / 2 * n float32
-// FMAs an instance and the subtraction NB^3 sum_k k (nb - k); against that
-// stand the A row blocks and the prior panels read once each.  The design is
-// the register-tiled product of panel_common.cuh: grid (column tile t =
-// k..nb-1, instance), one block per 128 x 128 tile of C_k, so late panels
-// with few tiles and a batch of one simply launch few blocks.
+// Bound on this card: operations.  The subtraction is NB^3 sum_k k (nb - k)
+// float32 FMAs an instance; against that stand the tile row of Ms and the
+// prior panels read once each.  The design is the register-tiled product of
+// panel_common.cuh: grid (column tile t = k..nb-1, instance), one block per
+// 128 x 128 tile of C_k, so late panels with few tiles and a batch of one
+// simply launch few blocks.  No TF32 anywhere.
 //
-// What is kept from the TPU kernels is the function.  Not kept: the chunking
-// of the batch by fast-memory size, the copy slots and semaphores, the 3-way
-// bf16 split of the row operand (A is upcast in registers, the products are
-// float32 FMAs, which is what the split emulates), and the 2-term split mode:
-// the kernels are always f32-faithful.  No TF32 anywhere.
-//
-// Summation.  The assembly sums 64-column chunks in registers and the chunk
-// sums in shared memory, as assemble_sym.cu does.  The subtraction is summed
-// in an accumulator of its own, each prior panel's 128 terms in registers and
-// the panels' sums in shared memory, and the total is subtracted from the
-// start tile once: up to (nb - 1) NB terms chained onto the start value in
-// float32 would lose the digits the two-level assembly has just won.  The
-// start tile waits in C itself meanwhile (each thread reads back only what it
-// wrote).
+// Summation.  The subtraction is summed in an accumulator of its own, each
+// prior panel's 128 terms in registers and the panels' sums in shared memory,
+// and the total is subtracted from the start tile once: up to (nb - 1) NB
+// terms chained onto the start value in float32 would lose the digits the
+// two-level assembly has just won.
 //
 // diag_factor_inv: one block per instance, the tile in shared memory.  The
 // factor is the column-sequential left-looking form, four lanes owning row i:
 //   L[i][j] = (a[i][j] - sum_{p<j} L[i][p] L[j][p]) / sqrt(max(d_j, tiny)),
 //   d_j = a[j][j] - sum_{p<j} L[j][p]^2,
 // the dot products accumulated in float64 and rounded once on store.  Only
-// the lower triangle of the tile is used (the fused kernel does not
+// the lower triangle of the tile is used (the panel kernels do not
 // symmetrise it).  A block that is not positive definite gets a non-positive
 // or non-finite diagonal entry, which the caller's `ok` test catches; nothing
 // traps.  The inverse W = L^-1 is forward substitution, four lanes owning
 // column c, again float64 sums rounded once per entry.  Latency-bound: about
 // NB^3 / 3 FMAs for each of the two.
 //
-// Shapes: m and n multiples of 128 (the caller pads the assembled route).
+// Shapes: m a multiple of 128 (the caller pads the assembled route).
 
 #include "panel_common.cuh"
 
@@ -79,14 +67,11 @@ namespace {
 
 using namespace ipx_tile;
 
-// FUSED: start tile assembled from A (type T).  Otherwise read from Ms.
 // Prior: where the rows of the k prior panels lie (PanelRows or FullRows).
-template <typename T, bool FUSED, typename Prior>
+template <typename Prior>
 __global__ void __launch_bounds__(THREADS)
-panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
-             const float* __restrict__ jv, const float* __restrict__ reg,
-             const float* __restrict__ Ms, Prior prior, float* C, int m,
-             int n, int k, int vec_ok) {
+panel_kernel(const float* __restrict__ Ms, Prior prior, float* C, int m,
+             int k) {
     __shared__ __align__(16) float Xs[BK][LDS];
     __shared__ __align__(16) float Ys[BK][LDS];
     extern __shared__ float tot[];                // parked sums, TOT_BYTES
@@ -105,32 +90,8 @@ panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
         cj[e] = tx * 4 + tile_off(e);
     }
 
-    float acc[8][8];
-    if constexpr (FUSED) {
-        const T* Ab = A + b * size_t(m) * size_t(n);
-        const int lr = tid >> 1;
-        assembly_tile(Ab + size_t(o + lr) * n, Ab + size_t(t * TILE + lr) * n,
-                      true, true, d2 + b * size_t(n), n, vec_ok != 0, Xs, Ys,
-                      tot, tid, acc);
-        const float* jb = jv + b * size_t(m);
-        const float rg = reg[b];
-        float jr[8], jc[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-            jr[e] = jb[o + ri[e]];
-            jc[e] = jb[t * TILE + cj[e]];
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                float v = __fmul_rn(__fmul_rn(acc[i][j], jr[i]), jc[j]);
-                if (t == k && ri[i] == cj[j]) v = __fadd_rn(v, rg);
-                Cb[size_t(ri[i]) * w + cj[j]] = v;
-            }
-    }
-
     // ---- sum_{j<k} P_j[:, (k-j) NB + r]^T P_j[:, (t-j) NB + c] --------------
+    float acc[8][8];
     zero_total(tot, tid);
     for (int jj = 0; jj < k; ++jj) {
         size_t wj;                                // row stride of panel jj
@@ -147,32 +108,26 @@ panel_kernel(const T* __restrict__ A, const float* __restrict__ d2,
     }
 
     // ---- C = start - total, the one subtraction -----------------------------
-    const float* Mrow = FUSED ? nullptr
-                              : Ms + b * size_t(m) * m + size_t(o) * m
-                                    + size_t(t) * TILE;
+    const float* Mrow = Ms + b * size_t(m) * m + size_t(o) * m
+                        + size_t(t) * TILE;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const size_t at = size_t(ri[i]) * w + cj[j];
-            const float start = FUSED ? Cb[at]
-                                      : Mrow[size_t(ri[i]) * m + cj[j]];
-            Cb[at] = __fsub_rn(start, tot[(i * 8 + j) * THREADS + tid]);
-        }
+        for (int j = 0; j < 8; ++j)
+            Cb[size_t(ri[i]) * w + cj[j]] = __fsub_rn(
+                Mrow[size_t(ri[i]) * m + cj[j]],
+                tot[(i * 8 + j) * THREADS + tid]);
 }
 
-template <typename T, bool FUSED, typename Prior>
-int launch_panel(const void* A, const float* d2, const float* jv,
-                 const float* reg, const float* Ms, const Prior& prior,
-                 float* C, int B, int m, int n, int k, cudaStream_t stream) {
-    auto kern = panel_kernel<T, FUSED, Prior>;
+template <typename Prior>
+int launch_panel(const float* Ms, const Prior& prior, float* C, int B, int m,
+                 int k, cudaStream_t stream) {
+    auto kern = panel_kernel<Prior>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TOT_BYTES));
     if (err != cudaSuccess) return int(err);
-    const int vec_ok = reinterpret_cast<uintptr_t>(A) % 16 == 0;   // n % 8 == 0
     dim3 grid(m / TILE - k, B);
-    kern<<<grid, THREADS, TOT_BYTES, stream>>>(
-        static_cast<const T*>(A), d2, jv, reg, Ms, prior, C, m, n, k, vec_ok);
+    kern<<<grid, THREADS, TOT_BYTES, stream>>>(Ms, prior, C, m, k);
     return int(cudaGetLastError());
 }
 
@@ -329,24 +284,6 @@ diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
 
 }  // namespace
 
-// Panel k of the fused factor: C (B, NB, m - k NB) from A (B, m, n) bf16,
-// d2 (B, n), j (B, m), reg (B,) and the k prior panels (host array of k
-// device pointers, panel j being (B, NB, m - j NB) contiguous).
-// Returns 0, a cudaError_t, or -1 for arguments the kernel does not take.
-extern "C" int ipx_fused_panel(const void* A, const float* d2, const float* jv,
-                               const float* reg, const void* const* prior,
-                               float* C, int B, int m, int n, int k,
-                               void* stream) {
-    if (B < 1 || B > 65535 || m < TILE || m % TILE || n < TILE || n % TILE)
-        return -1;
-    if (k < 0 || k >= m / TILE) return -1;
-    PanelRows pp;
-    if (fill_panels(pp.panels, prior, k) != 0) return -1;
-    return launch_panel<__nv_bfloat16, true>(
-        A, d2, jv, reg, nullptr, pp, C, B, m, n, k,
-        static_cast<cudaStream_t>(stream));
-}
-
 // Panel k from an assembled, scaled, regularised Ms (B, m, m) f32.
 extern "C" int ipx_accum_panel(const float* Ms, const void* const* prior,
                                float* C, int B, int m, int k, void* stream) {
@@ -354,9 +291,8 @@ extern "C" int ipx_accum_panel(const float* Ms, const void* const* prior,
     if (k < 0 || k >= m / TILE) return -1;
     PanelRows pp;
     if (fill_panels(pp.panels, prior, k) != 0) return -1;
-    return launch_panel<float, false>(nullptr, nullptr, nullptr, nullptr, Ms,
-                                      pp, C, B, m, 0, k,
-                                      static_cast<cudaStream_t>(stream));
+    return launch_panel(Ms, pp, C, B, m, k,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // Panel k from Ms, the k prior panels being rows 0 .. k NB of the full
@@ -366,9 +302,8 @@ extern "C" int ipx_accum_panel_lt(const float* Ms, const float* LT, float* C,
     if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
     if (k < 0 || k >= m / TILE) return -1;
     if (reinterpret_cast<uintptr_t>(LT) % 16 != 0) return -1;
-    return launch_panel<float, false>(nullptr, nullptr, nullptr, nullptr, Ms,
-                                      FullRows{LT}, C, B, m, 0, k,
-                                      static_cast<cudaStream_t>(stream));
+    return launch_panel(Ms, FullRows{LT}, C, B, m, k,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // Rows k NB .. (k+1) NB of LT (B, m, m) outside the diagonal tile, from

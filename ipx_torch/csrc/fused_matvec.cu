@@ -17,35 +17,41 @@
 // MODE_ATA is to pay it once where two dependent matvecs pay it twice.
 //
 // Design.  One block per (instance, column stripe of W columns).  The block
-// copies its m x W stripe from device memory into shared memory ONCE, in the
-// stored type.  t for a column needs all m rows of that column, so it is
-// complete inside the block: a strided row reduction per thread, combined
-// across thread groups through shared memory in a fixed order.  Then
+// asks for its whole m x W stripe at once with asynchronous 16-byte copies
+// (cp.async), in NCHUNK row chunks, each completing on its own mbarrier, and
+// keeps it in shared memory in the stored type.  t for a column needs all m
+// rows of that column, so it is complete inside the block: phase 1 consumes
+// each chunk as it lands, each thread summing one 16-byte granule of columns
+// over a strided set of rows, and the threads' sums are combined by a fixed
+// shuffle tree and then across warps in order.  Then
 // u = alpha * (t + beta) + w is formed for the W columns and the stripe is
 // read AGAIN from shared memory for the block's partial y (one row per
-// thread).  The partial y of every stripe goes to a (B, n_stripes, m) scratch
-// and a second small kernel sums the stripes in a fixed order.  No atomics:
-// the result is the same bit for bit from launch to launch, which the
-// interior-point iteration above needs to be comparable with anything.
-// The TPU kernel's sequential grid that accumulates y across stripes has no
-// counterpart: blocks run in no order here.
+// thread).  The blocks of CLUSTER = 2 neighbouring stripes form a
+// thread-block cluster: each parks its partial y in shared memory, and block
+// r of the cluster sums rows r m / 2 .. of both in rank order, reading the
+// other's shared memory directly.  Those pair sums go to a
+// (B, n_stripes / 2, m) scratch, half of one partial a stripe, and a second
+// small kernel sums them in a fixed order.  (Clusters of four and eight
+// stripes were slower on an H100; PERF.md.)
+// No atomics: the result is the same bit for bit from launch to launch and at
+// any B, which the interior-point iteration above needs to be comparable
+// with anything.  The TPU kernel's sequential grid that
+// accumulates y across stripes has no counterpart: blocks run in no order
+// here.
 //
-// Two properties the caller relies on:
-//   * (t + beta) is rounded as a float32 sum BEFORE it meets alpha
-//     (alpha = x/s reaches 1e10 near convergence; t + beta is a difference
-//     of O(1) quantities that cancels almost completely);
-//   * the t written out is bit for bit the t that was used for y.
+// Conversions.  A float32-to-float64 conversion costs a warp four times an
+// f64 FMA on this card, and one per element of A is the larger part of the
+// kernel's arithmetic.  v is staged as double once per block, and each element
+// of A is converted once per phase: twice in all.  bf16 -> float32 is a shift.
 //
-// A bf16 value is exact in float32, so the stripe is upcast in registers;
-// the TPU kernel instead emulates the f32 x bf16 product with a 3-way bf16
-// split of the vector because its matrix unit multiplies bf16 only.  If
-// these kernels ever move to tensor cores the split has to come back.  No
-// TF32 anywhere.
+// Where n * itemsize is not a multiple of 16 bytes the rows are not 16-byte
+// aligned and the stripe is staged element by element, synchronously; that
+// depends on the shape only.
 //
 // Sums are accumulated in float64 and rounded to float32 once, at the end
-// (the stripe partials of y stay float64 in the scratch).  The kernels wait
-// for memory, and the card's float64 rate is far above what the stream
-// needs, so this costs little; what it buys is residuals A x - b and
+// (the stripe partials of y stay float64 in the scratch).  The f64 FMAs cost
+// little beside the stream; the conversions to f64 are what the sums cost
+// (above).  What they buy is residuals A x - b and
 // A^T y + s - c that are correct to the last float32 bit where a float32
 // chain of m or n terms leaves an error that the interior-point iteration
 // cannot get under: measurably more lanes of a batch reach the tolerance.
@@ -55,21 +61,18 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MODE_ATA = 0, MODE_A = 1, MODE_AT = 2, MODE_A2 = 3;
+namespace cg = cooperative_groups;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-    return v;
-}
-template <> __device__ __forceinline__ float
-to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
+constexpr int THREADS = 256;
+constexpr int NCHUNK = 8;           // row chunks of the asynchronous copy
+constexpr int CLUSTER = 2;          // stripes whose partial y a cluster sums
+constexpr int MODE_ATA = 0, MODE_A = 1, MODE_AT = 2, MODE_A2 = 3;
+constexpr size_t SMEM_LIMIT = 227u * 1024u;
 
 template <typename T> __device__ __forceinline__ T zero_of();
 template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
@@ -78,48 +81,107 @@ zero_of<__nv_bfloat16>() {
     return __float2bfloat16(0.f);
 }
 
-// dot of one shared-memory stripe row (W stored elements) with u (W doubles);
-// SQ squares the row's entries first (exact in double)
-template <bool SQ>
-__device__ __forceinline__ double entry(float a) {
-    const double d = double(a);
-    return SQ ? d * d : d;
-}
-template <bool SQ>
-__device__ __forceinline__ double row_dot(const float* row, const double* u,
-                                          int W) {
-    double acc = 0.0;
-#pragma unroll 8
-    for (int c = 0; c < W; ++c) acc = fma(entry<SQ>(row[c]), u[c], acc);
-    return acc;
-}
-template <bool SQ>
-__device__ __forceinline__ double row_dot(const __nv_bfloat16* row,
-                                          const double* u, int W) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(row);
-    double acc = 0.0;
-#pragma unroll 8
-    for (int c2 = 0; c2 < W / 2; ++c2) {
-        float2 f = __bfloat1622float2(p[c2]);
-        acc = fma(entry<SQ>(f.x), u[2 * c2], acc);
-        acc = fma(entry<SQ>(f.y), u[2 * c2 + 1], acc);
-    }
-    return acc;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return unsigned(__cvta_generic_to_shared(p));
 }
 
-// Row stride of the staged stripe, in elements: W plus padding that makes
-// the stride an ODD number of 32-bit words, so that the one-row-per-thread
-// pass of phase 2 hits 32 different banks.
-__host__ __device__ inline int stripe_ld(int W, int itemsize) {
-    int words = (W * itemsize / 4) | 1;
-    return words * 4 / itemsize;
+// 16 bytes global -> shared, asynchronous; zeros where `bytes` is 0
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// the barrier completes once every thread's copies issued so far have landed
+__device__ __forceinline__ void cp_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// wait for the first phase of a barrier (each is used once)
+__device__ __forceinline__ void bar_wait(uint64_t* bar) {
+    unsigned done;
+    do {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+    } while (!done);
+}
+
+// The stripe is kept row by row, W elements a row, no padding, in 16-byte
+// granules: granule q of row r sits at granule q ^ swz(r) of the row.  With
+// G granules a row, 8 / G rows share 128 bytes (the 32 banks); the XOR
+// spreads the rows that a quarter-warp's 16-byte loads touch together over
+// distinct banks, for the one-row-per-thread pass of phase 2 and the
+// one-column-per-thread pass of phase 1 alike.  (Padding the rows instead,
+// as an odd stride would, breaks the 16-byte alignment cp.async needs.)
+// (G = 2^lg granules a row; shifts, not divisions)
+__device__ __forceinline__ int swz(int r, int lg) {
+    return (r >> (lg >= 3 ? 0 : 3 - lg)) & ((1 << lg) - 1);
+}
+
+// entry c of row r (rows of 2^lw entries): its offset in elements from the
+// stripe's start
+template <typename T>
+__device__ __forceinline__ int at_rc(int r, int c, int lw, int lg) {
+    constexpr int VEC = 16 / int(sizeof(T));
+    return (r << lw) + (((c / VEC) ^ swz(r, lg)) * VEC) + c % VEC;
+}
+
+// a granule's VEC entries as floats (bf16 -> float32 is exact)
+__device__ __forceinline__ void unpack(const uint4& g, float (&f)[4]) {
+    f[0] = __uint_as_float(g.x); f[1] = __uint_as_float(g.y);
+    f[2] = __uint_as_float(g.z); f[3] = __uint_as_float(g.w);
+}
+__device__ __forceinline__ void unpack(const uint4& g, float (&f)[8]) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(p[e]);
+        f[2 * e] = x.x;
+        f[2 * e + 1] = x.y;
+    }
+}
+
+// one stripe row (W stored elements) dotted with u (W doubles), read a
+// granule at a time, the even and the odd entries in two chains that meet at
+// the end; SQ squares the row's entries first (exact in double)
+template <bool SQ, typename T>
+__device__ __forceinline__ double row_dot(const T* row, int r, const double* u,
+                                          int lg) {
+    constexpr int VEC = 16 / int(sizeof(T));
+    const uint4* q = reinterpret_cast<const uint4*>(row);
+    const int s = swz(r, lg);
+    double even = 0.0, odd = 0.0;
+    for (int g = 0; g < (1 << lg); ++g) {
+        float f[VEC];
+        unpack(q[g ^ s], f);
+#pragma unroll
+        for (int e = 0; e < VEC; e += 2) {
+            const double x0 = f[e], x1 = f[e + 1];
+            even = fma(SQ ? x0 * x0 : x0, u[g * VEC + e], even);
+            odd = fma(SQ ? x1 * x1 : x1, u[g * VEC + e + 1], odd);
+        }
+    }
+    return even + odd;
 }
 
 inline size_t round16(size_t x) { return (x + 15) & ~size_t(15); }
 
+// The NCHUNK copy barriers (a region of their own: the memory of a live
+// mbarrier is not reused), the stripe, the warps' phase-1 column sums
+// (WARPS x W doubles), W doubles of u and m doubles of v.  Which m fits at
+// all does not depend on the copy path.
+constexpr int WARPS = THREADS / 32;
+constexpr size_t BARS_BYTES = NCHUNK * sizeof(uint64_t);
 inline size_t stripe_smem_bytes(int m, int W, int itemsize) {
-    return round16(size_t(m) * stripe_ld(W, itemsize) * itemsize)
-           + size_t(THREADS + W) * sizeof(double) + size_t(m) * sizeof(float);
+    return BARS_BYTES + round16(size_t(m) * W * itemsize)
+           + size_t(WARPS + 1) * W * sizeof(double) + size_t(m) * sizeof(double);
 }
 
 template <typename T, int MODE>
@@ -131,59 +193,90 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
               size_t as_bytes) {
     extern __shared__ uint4 smem_raw[];
     constexpr bool ONLY_A = MODE == MODE_A || MODE == MODE_A2;
+    constexpr int VEC = 16 / int(sizeof(T));
     const int W = 1 << lw;
-    const int ld = stripe_ld(W, int(sizeof(T)));
-    T* As = reinterpret_cast<T*>(smem_raw);
+    const int lg = lw - (sizeof(T) == 2 ? 3 : 2);  // 16-byte granules a row
+    const int G = 1 << lg;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);  // NCHUNK
+    T* As = reinterpret_cast<T*>(
+        reinterpret_cast<char*>(smem_raw) + BARS_BYTES);
     double* red = reinterpret_cast<double*>(
-        reinterpret_cast<char*>(smem_raw) + as_bytes);     // THREADS
-    double* us = red + THREADS;                            // W
-    float* vs = reinterpret_cast<float*>(us + W);          // m
+        reinterpret_cast<char*>(As) + as_bytes);           // WARPS x W
+    double* us = red + WARPS * W;                          // W
+    double* vs = us + W;                                   // m
 
     const int tid = threadIdx.x;
     const int stripe = blockIdx.x;
-    const int ns = gridDim.x;
     const size_t b = blockIdx.y;
     const int c0 = stripe << lw;
     const T* Ab = A + b * size_t(m) * size_t(n);
+    const int rc = (m + NCHUNK - 1) / NCHUNK;      // rows of a copy chunk
 
-    // ---- phase 0: stage the stripe (and v, or u) in shared memory --------
+    // ---- phase 0: ask for the stripe; stage v (or u) ------------------------
     if (vec_ok) {
-        constexpr int VEC = 16 / int(sizeof(T));
-        const int cpr = W / VEC;                 // 16-byte chunks per row
-        for (int idx = tid; idx < m * cpr; idx += THREADS) {
-            const int r = idx / cpr, q = idx - r * cpr;
-            const int col = c0 + q * VEC;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (col < n)     // n % VEC == 0: the chunk is all in or all out
-                val = *reinterpret_cast<const uint4*>(Ab + size_t(r) * n + col);
-            uint32_t* dst = reinterpret_cast<uint32_t*>(As + r * ld + q * VEC);
-            dst[0] = val.x; dst[1] = val.y; dst[2] = val.z; dst[3] = val.w;
+        if (tid == 0)
+            for (int c = 0; c < NCHUNK; ++c) bar_init(bars + c, THREADS);
+        __syncthreads();
+        for (int c = 0; c < NCHUNK; ++c) {
+            const int r0 = c * rc, r1 = min(m, r0 + rc);
+            for (int idx = r0 * G + tid; idx < r1 * G; idx += THREADS) {
+                const int r = idx / G, qq = idx - r * G;
+                const int col = c0 + qq * VEC;
+                // n % VEC == 0: the granule is all in or all out (zeros)
+                const bool in = col < n;
+                cp16(As + at_rc<T>(r, qq * VEC, lw, lg),
+                     in ? Ab + size_t(r) * n + col : Ab, in ? 16 : 0);
+            }
+            cp_arrive(bars + c);
         }
     } else {
         for (int idx = tid; idx < (m << lw); idx += THREADS) {
             const int r = idx >> lw, c = idx & (W - 1);
-            As[r * ld + c] = (c0 + c < n) ? Ab[size_t(r) * n + c0 + c]
-                                          : zero_of<T>();
+            As[at_rc<T>(r, c, lw, lg)] = (c0 + c < n)
+                ? Ab[size_t(r) * n + c0 + c] : zero_of<T>();
         }
     }
     if (!ONLY_A) {
-        for (int i = tid; i < m; i += THREADS) vs[i] = v[b * m + i];
+        for (int i = tid; i < m; i += THREADS) vs[i] = double(v[b * m + i]);
     } else if (tid < W) {
         us[tid] = (c0 + tid < n) ? double(w[b * n + c0 + tid]) : 0.0;
     }
     __syncthreads();
 
-    // ---- phase 1: t = A_S^T v, complete inside the block -------------------
+    // ---- phase 1: t = A_S^T v, complete inside the block.  Thread (rg, q)
+    // takes granule q (VEC columns) of rows rg, rg + RG, ... as they land,
+    // one shared-memory load for VEC entries; the column sums go through a
+    // fixed shuffle tree over the warp's lanes with the same q, then over
+    // the warps in order --------------------------------------------------
     if (!ONLY_A) {
-        const int tx = tid & (W - 1), g = tid >> lw, R = THREADS >> lw;
-        double acc = 0.0;
-        for (int i = g; i < m; i += R)
-            acc = fma(double(to_f32(As[i * ld + tx])), double(vs[i]), acc);
-        red[tid] = acc;                          // tid == g * W + tx
+        const int q = tid & (G - 1), rg = tid >> lg, RG = THREADS >> lg;
+        const int lane = tid & 31, warp = tid >> 5;
+        double acc[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.0;
+        int next = 0;                            // first chunk not waited for
+        for (int i = rg; i < m; i += RG) {
+            while (vec_ok && i >= next * rc) bar_wait(bars + next++);
+            const double vi = vs[i];
+            const uint4 g4 = *reinterpret_cast<const uint4*>(
+                As + at_rc<T>(i, q * VEC, lw, lg));
+            float f[VEC];
+            unpack(g4, f);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] = fma(double(f[e]), vi, acc[e]);
+        }
+#pragma unroll
+        for (int off = G; off < 32; off <<= 1)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+                acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+        if (lane < G)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) red[warp * W + lane * VEC + e] = acc[e];
         __syncthreads();
         if (tid < W) {
             double td = 0.0;
-            for (int gg = 0; gg < R; ++gg) td += red[(gg << lw) + tid];
+            for (int wp = 0; wp < WARPS; ++wp) td += red[wp * W + tid];
             const float t = float(td);           // the one rounding of t
             const int col = c0 + tid;
             const bool in = col < n;
@@ -202,11 +295,31 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
         __syncthreads();
     }
 
-    // ---- phase 2: this stripe's share of y = A u ---------------------------
-    if (MODE != MODE_AT) {
-        double* yp = ypart + (b * ns + stripe) * size_t(m);
-        for (int i = tid; i < m; i += THREADS)
-            yp[i] = row_dot<MODE == MODE_A2>(As + i * ld, us, W);
+    // ---- phase 2: this stripe's share of y = A u, parked in the first 8
+    // bytes of the row's own stripe storage (only this thread reads the row
+    // here, and the value depends on every entry it read) -------------------
+    if constexpr (MODE != MODE_AT) {
+        for (int i = tid; i < m; i += THREADS) {
+            if (ONLY_A && vec_ok) bar_wait(bars + i / rc);
+            const double y = row_dot<MODE == MODE_A2>(As + i * W, i, us, lg);
+            *reinterpret_cast<double*>(As + i * W) = y;
+        }
+        // ---- the cluster's stripes: block r sums its share of the rows over
+        // the cluster's blocks in rank order ---------------------------------
+        cg::cluster_group cl = cg::this_cluster();
+        cl.sync();
+        const int r = int(cl.block_rank());
+        const int per = (m + CLUSTER - 1) / CLUSTER;
+        double* yp = ypart
+            + (b * (gridDim.x / CLUSTER) + stripe / CLUSTER) * size_t(m);
+        for (int i = r * per + tid; i < min(m, (r + 1) * per); i += THREADS) {
+            double acc = 0.0;
+            for (int s = 0; s < CLUSTER; ++s)
+                acc += *cl.map_shared_rank(
+                    reinterpret_cast<double*>(As + i * W), s);
+            yp[i] = acc;
+        }
+        cl.sync();                  // no block leaves while others read it
     }
 }
 
@@ -228,8 +341,7 @@ int launch(const void* A, const float* v, const float* alpha,
            double* ypart, int B, int m, int n, int W, cudaStream_t stream) {
     int lw = 0;
     while ((1 << lw) < W) ++lw;
-    const size_t as_bytes =
-        round16(size_t(m) * stripe_ld(W, int(sizeof(T))) * sizeof(T));
+    const size_t as_bytes = round16(size_t(m) * W * sizeof(T));
     const size_t smem = stripe_smem_bytes(m, W, int(sizeof(T)));
     auto kern = stripe_kernel<T, MODE>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -239,15 +351,30 @@ int launch(const void* A, const float* v, const float* alpha,
     const int vec_ok = (n % VEC == 0) && (W % VEC == 0)
                        && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
     const int ns = (n + W - 1) / W;
-    dim3 grid(ns, B);
-    kern<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(A), v, alpha, beta, w, t, ypart, m, n, lw,
-        vec_ok, as_bytes);
+    // t alone needs no cluster step; the others pad the grid to whole pairs
+    // (a padding stripe is all columns past n: its partial y is zeros)
+    const int cs = MODE == MODE_AT ? 1 : CLUSTER;
+    const int nsp = (ns + cs - 1) / cs * cs;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nsp, B);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(A), v, alpha,
+                             beta, w, t, ypart, m, n, lw, vec_ok, as_bytes);
+    if (err != cudaSuccess) return int(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
     if (MODE != MODE_AT) {
         dim3 g2((m + THREADS - 1) / THREADS, B);
-        sum_stripes_kernel<<<g2, THREADS, 0, stream>>>(ypart, y, m, ns);
+        sum_stripes_kernel<<<g2, THREADS, 0, stream>>>(ypart, y, m, nsp / cs);
         err = cudaGetLastError();
     }
     return int(err);
@@ -263,13 +390,13 @@ int dispatch(int mode, const void* A, const float* v, const float* alpha,
                                    W, s);
     case MODE_A:
         return launch<T, MODE_A>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                 W, s);
+                                   W, s);
     case MODE_AT:
         return launch<T, MODE_AT>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                  W, s);
+                                   W, s);
     case MODE_A2:
         return launch<T, MODE_A2>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                  W, s);
+                                   W, s);
     }
     return -1;
 }
@@ -279,7 +406,7 @@ int dispatch(int mode, const void* A, const float* v, const float* alpha,
 // mode: 0 ata (needs v; alpha/beta/w may be null = zeros; writes y, t),
 //       1 a   (needs w; writes y),  2 at (needs v; writes t),
 //       3 a squared (needs w; writes y = (A o A) w).
-// ypart: (B, ceil(n / W), m) double scratch for modes 0 and 1.
+// ypart: (B, ceil(ceil(n / W) / 2), m) double scratch for modes 0, 1, 3.
 // Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
 extern "C" int ipx_fused_matvec(int mode, const void* A, int a_is_bf16,
                                 const float* v, const float* alpha,
@@ -288,7 +415,8 @@ extern "C" int ipx_fused_matvec(int mode, const void* A, int a_is_bf16,
                                 int W, void* stream) {
     if (B < 1 || m < 1 || n < 1 || B > 65535) return -1;
     if (W != 8 && W != 16 && W != 32 && W != 64) return -1;
-    if (stripe_smem_bytes(m, W, a_is_bf16 ? 2 : 4) > 227u * 1024u) return -1;
+    if (stripe_smem_bytes(m, W, a_is_bf16 ? 2 : 4) > SMEM_LIMIT)
+        return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (a_is_bf16)
         return dispatch<__nv_bfloat16>(mode, A, v, alpha, beta, w, y, t,

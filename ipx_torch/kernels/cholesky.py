@@ -16,9 +16,11 @@ rows ``k NB .. (k+1) NB`` of ``L^T`` from the diagonal on, and ``W`` is
 
 ``factor_fused_panels`` assembles the start tiles from a bf16-stored A inside
 the panel kernel (Jacobi scale and reg included), so the normal matrix is
-never written; ``factor_lt_panels`` reads them from an assembled matrix
-(``csrc/factor_panels.cu``).  ``W_D @ C_k[:, :, NB:]`` is a library product,
-as it is outside the kernels in ``ipx``.  ``chol_solve_batched_panels`` is
+never written; its products run on the tensor cores with an exact 3-way bf16
+split of the f32 row operand (``csrc/fused_panel.cu``).  ``factor_lt_panels``
+reads the start tiles from an assembled matrix (``csrc/factor_panels.cu``).
+``W_D @ C_k[:, :, NB:]`` is a library product, as it is outside the kernels
+in ``ipx``.  ``chol_solve_batched_panels`` is
 the pair-solve ``L L^T x = b`` in one launch (``csrc/solve_panels.cu``).
 
 The factors that keep a full (B, m, m) matrix: ``factor_lt_batched`` is the
@@ -421,7 +423,7 @@ def _fused_panel_rows(A: torch.Tensor, d2: torch.Tensor, j: torch.Tensor,
         raise ValueError("A, d2, j and reg must be contiguous")
     if not A.is_cuda:
         return _fused_panel_rows_plain(A, d2, j, reg)
-    fn = _entry("factor_panels", "ipx_fused_panel",
+    fn = _entry("fused_panel", "ipx_fused_panel",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 
     def launch(prior, C, k):
@@ -464,8 +466,10 @@ def factor_fused_panels(A: torch.Tensor, d2: torch.Tensor, j: torch.Tensor,
     Jacobi scale, reg (B,) the Tikhonov term of each instance, all f32 ->
     ``(panels, W)`` in the layout of :func:`factor_lt_panels`.  The scaled
     regularised matrix is assembled panel by panel inside the kernel and
-    never written.  Always f32-faithful: the 2-term split mode of ``ipx``
-    has no counterpart."""
+    never written.  Always f32-faithful: on the card the products are bf16
+    tensor-core passes over an exact split of each f32 operand (three for
+    the assembly, six for the prior-panel subtraction); the 2-term split
+    mode of ``ipx`` has no counterpart."""
     rows = _fused_panel_rows(A, d2, j, reg)
     return _factor_panels(A.shape[0], A.shape[1], A.device, rows,
                           diag_factor_inv)

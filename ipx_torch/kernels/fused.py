@@ -17,7 +17,10 @@ For a CUDA tensor each wrapper launches its hand-written kernel or raises;
 for a CPU tensor, and only then, it evaluates the ``*_plain`` version, which
 is also what the kernels are held against on the card.  ``LAUNCHES`` counts
 kernel launches per wrapper.  The kernels accumulate in float64 and round to
-float32 once; the plain versions are float32 matmuls.
+float32 once; the plain versions are float32 matmuls.  On the card each
+block copies its column stripe asynchronously and a thread-block cluster of
+two stripes sums their partial y before a second, small launch adds the
+pairs' sums (``stripe_partials`` per instance).
 """
 from __future__ import annotations
 
@@ -31,20 +34,33 @@ LAUNCHES = {"ata_apply": 0, "a_matvec": 0, "at_matvec": 0}
 
 _SMEM_LIMIT = 227 * 1024     # dynamic shared memory one block may ask for
 _THREADS = 256
+_CLUSTER = 2                 # stripes a thread-block cluster sums (CLUSTER)
+_NCHUNK = 8                  # row chunks of the asynchronous stripe copy
 
 
 def _stripe_smem_bytes(m: int, W: int, itemsize: int) -> int:
-    # mirrors stripe_smem_bytes() of csrc/fused_matvec.cu
-    ld = ((W * itemsize // 4) | 1) * 4 // itemsize
-    return -(-m * ld * itemsize // 16) * 16 + (_THREADS + W) * 8 + m * 4
+    # mirrors stripe_smem_bytes() of csrc/fused_matvec.cu: the copy
+    # barriers, the stripe (unpadded rows), the warps' phase-1 column sums,
+    # u, and v as doubles
+    return (_NCHUNK * 8 + -(-m * W * itemsize // 16) * 16
+            + (_THREADS // 32 + 1) * W * 8 + m * 8)
+
+
+def stripe_partials(n: int, W: int) -> int:
+    """Partial sums of y per instance that the stripe kernel leaves for its
+    second launch: one per pair of stripes (the grid is rounded up to whole
+    pairs)."""
+    ns = -(-n // W)
+    return -(-ns // _CLUSTER)
 
 
 def stripe_cols(m: int, itemsize: int) -> int | None:
     """Column-stripe width W of the kernels for an m-row A of this item
     size: the widest of the candidates whose m x W stripe (stored type) fits
     one block's shared memory; ``None`` if even 8 columns do not fit (the
-    wrappers then refuse a CUDA tensor of that shape).  About 75 KB at
-    m = 1024, so three blocks share an SM."""
+    wrappers then refuse a CUDA tensor of that shape: m above 9658 for
+    bf16, 5795 for f32).  About 74 KB at m = 1024, so three blocks share an
+    SM."""
     for W in ((32, 16, 8) if itemsize == 2 else (16, 8)):
         if _stripe_smem_bytes(m, W, itemsize) <= _SMEM_LIMIT:
             return W
@@ -147,7 +163,7 @@ def _launch(name: str, mode: int, A, v, alpha, beta, w):
     y = t = ypart = None
     if mode != 2:                       # 0 ata, 1 a, 2 at, 3 a squared
         y = torch.empty(B, m, **kw)
-        ypart = torch.empty(B, -(-n // W), m, dtype=torch.float64,
+        ypart = torch.empty(B, stripe_partials(n, W), m, dtype=torch.float64,
                             device=A.device)
     if mode != 1:
         t = torch.empty(B, n, **kw)

@@ -1,0 +1,69 @@
+"""Main-path kernel times of one checkout of this repository, for comparing
+two trees on one card.
+
+    python3 probes/kernel_times.py <root of a checkout> <tag>
+
+Imports ``ipx_torch`` from the checkout given, builds its kernels and prints
+one JSON line: the card, the build seconds, and CUDA-event times at B=256,
+m=1024, n=2048 (bf16 A) of the eight panel launches of the fused factor, the
+whole fused factor, ``ata_apply``, ``a_matvec`` (plain and squared),
+``at_matvec``, and ``factor_lt_panels`` / ``factor_lt_batched`` on the
+assembled matrix.  To compare a change with its parent in one call, export
+the parent (``git archive``) into a git-ignored directory and run parent,
+change, change, parent.  Needs a CUDA device.
+"""
+import json
+import sys
+import time
+
+if len(sys.argv) != 3:
+    sys.exit(__doc__)
+root, tag = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+
+import torch  # noqa: E402
+
+from ipx_torch.devinfo import nvidia_smi_line, time_ms  # noqa: E402
+from ipx_torch.kernels import _build, cholesky as pk, fused as fk  # noqa: E402
+
+t0 = time.perf_counter()
+_build.build_all()
+tb = time.perf_counter() - t0
+B, m, n, NB = 256, 1024, 2048, 128
+g = torch.Generator(device="cuda").manual_seed(2)
+kw = dict(generator=g, device="cuda", dtype=torch.float32)
+A = (torch.randn(B, m, n, **kw) / n ** 0.5).to(torch.bfloat16)
+v = torch.randn(B, m, **kw)
+w = torch.randn(B, n, **kw)
+beta = torch.randn(B, n, **kw)
+d2 = torch.exp(3.0 * torch.randn(B, n, **kw))
+reg = torch.logspace(-8, -4, B, device="cuda")
+j = torch.rsqrt(fk.a_matvec(A, d2, square=True))
+panels, W = pk.factor_fused_panels(A, d2, j, reg)
+scratch = torch.empty(B * NB * m, device="cuda")
+
+
+def stages():
+    """The m / NB panel launches alone, on the factor's own prior panels."""
+    rows = pk._fused_panel_rows(A, d2, j, reg)
+    for k in range(m // NB):
+        wk = m - k * NB
+        rows(k, panels[:k], scratch[:B * NB * wk].view(B, NB, wk))
+
+
+Ms = pk.assemble_sym_batched(A, d2)
+Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
+Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
+out = {"tag": tag, "build_s": tb, "card": nvidia_smi_line()}
+out["panel_stages_x8"] = time_ms(stages, reps=5, warm=1)
+out["factor_fused_panels"] = time_ms(
+    lambda: pk.factor_fused_panels(A, d2, j, reg), reps=5, warm=1)
+out["ata_apply"] = time_ms(lambda: fk.ata_apply(A, v, d2, w, beta=beta))
+out["a_matvec"] = time_ms(lambda: fk.a_matvec(A, w))
+out["at_matvec"] = time_ms(lambda: fk.at_matvec(A, v))
+out["a_matvec_sq"] = time_ms(lambda: fk.a_matvec(A, d2, square=True))
+out["factor_lt_panels"] = time_ms(lambda: pk.factor_lt_panels(Ms), reps=5,
+                                  warm=1)
+out["factor_lt_batched"] = time_ms(lambda: pk.factor_lt_batched(Ms), reps=5,
+                                   warm=1)
+print(json.dumps(out), flush=True)
