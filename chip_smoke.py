@@ -421,15 +421,19 @@ def _refuses_oversize_rows() -> str | None:
 
 
 def _check_odd_shapes(rows: dict) -> None:
-    """The matvecs off the main path's shape, held against the plain version
-    and f64 like the other modes, bf16 and f32: at n = N_RAGGED
-    (``ata_apply``) rows that are not 16-byte aligned are staged element by
-    element and the last stripe is ragged; at m = M_PADDED (all three) the
-    copy chunks are ceil(m / 8) rows, the last one short, and the rows'
-    swizzle runs over a count that is not a multiple of 8.  t of
-    ``ata_apply`` is again the bits of ``at_matvec``."""
-    cuts = ((f"n{N_RAGGED}", M_ROWS, N_RAGGED, ("ata_apply",)),
-            (f"m{M_PADDED}", M_PADDED, N_COLS, _MATVECS))
+    """The matvecs and the assembly off the main path's shape, held against
+    the plain version and f64 like the other modes, bf16 and f32: at n =
+    N_RAGGED (``ata_apply``, ``assemble_sym_batched``) rows that are not
+    16-byte aligned are staged element by element and the last stripe or
+    chunk is ragged; at m = M_PADDED (all four) the matvecs' copy chunks are
+    ceil(m / 8) rows, the last one short, the rows' swizzle runs over a count
+    that is not a multiple of 8, and the assembly's last tile row is
+    zero-filled and its stores masked.  t of ``ata_apply`` is again the bits
+    of ``at_matvec``; M is exactly symmetric, the same bits from a second
+    launch and, for a lane, at B = 1 and 3 as in the batch."""
+    cuts = ((f"n{N_RAGGED}", M_ROWS, N_RAGGED,
+             ("ata_apply", "assemble_sym_batched")),
+            (f"m{M_PADDED}", M_PADDED, N_COLS, _ASSEMBLED))
     for a_dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for cut, m, n, names in cuts:
             A, v, w, beta, alpha = _inputs(B_CHECK, a_dtype, seed=8)
@@ -458,7 +462,20 @@ def _check_odd_shapes(rows: dict) -> None:
                 if name == "ata_apply" and \
                         not torch.equal(got[1], fk.at_matvec(A, v)):
                     fail("kernels", f"{label}: t differs from at_matvec")
+                if name == "assemble_sym_batched":
+                    _check_assembly(label, got[0], A, alpha)
             del A, refs, calls
+
+
+def _check_assembly(label, M, A, d2) -> None:
+    """M of ``assemble_sym_batched`` (at B_CHECK) exactly symmetric, the same
+    bits from a second launch, and a lane's bits at B = 1 and 3 those of the
+    batch."""
+    if not torch.equal(M, M.mT):
+        fail("kernels", f"{label}: M is not exactly symmetric")
+    if not torch.equal(M, pk.assemble_sym_batched(A, d2)):
+        fail("kernels", f"{label}: two launches differ")
+    _lanes_bitwise("kernels", label, pk.assemble_sym_batched, (A, d2), (M,))
 
 
 def phase_kernels() -> dict:
@@ -487,9 +504,8 @@ def phase_kernels() -> dict:
                                   float((g_ - p_).abs().max()) / scale)
                 worst_f64 = max(worst_f64,
                                 float((g_.double() - r_).abs().max()) / scale)
-            if name == "assemble_sym_batched" and \
-                    not torch.equal(got[0], got[0].mT):
-                fail("kernels", f"{label}: M is not exactly symmetric")
+            if name == "assemble_sym_batched":
+                _check_assembly(label, got[0], args[0], args[4])
             if name == "ata_apply":
                 # the t written out must be the t that was used: an
                 # at_matvec launch of the same kernel reproduces it exactly
@@ -894,6 +910,8 @@ def phase_panel_kernels(rows: dict) -> None:
     b = torch.randn(B_MAIN, M_ROWS, generator=g, device=DEV)
     L, _ = torch.linalg.cholesky_ex(Ms, check_errors=False)
     b3 = b.unsqueeze(-1)
+    p16 = tuple(p[:B_PADDED].contiguous() for p in panels)
+    W16, b16 = W[:B_PADDED].contiguous(), b[:B_PADDED].contiguous()
     set_times("chol_solve_batched_panels",
               lambda: pk.chol_solve_batched_panels(panels, W, b),
               lambda: pk.chol_solve_batched_panels_plain(panels, W, b),
@@ -902,8 +920,13 @@ def phase_panel_kernels(rows: dict) -> None:
               # and the two triangular solves the library route applies
               two_trsm_ms=time_ms(lambda: torch.linalg.solve_triangular(
                   L.mT, torch.linalg.solve_triangular(L, b3, upper=False),
-                  upper=True)))
-    del A, Ms, L, panels, W
+                  upper=True)),
+              # the padded path's batch: the first B_PADDED instances, every
+              # call enqueued before the first runs (the kernel, not the
+              # host's launch)
+              b16_ms=time_ms(lambda: pk.chol_solve_batched_panels(
+                  p16, W16, b16), queued=True))
+    del A, Ms, L, panels, W, p16, W16, b16
     torch.cuda.empty_cache()
     emit("panel_kernels", ok=True, batch_check=B_CHECK, batch_timed=B_MAIN,
          m=M_ROWS, n=N_COLS,

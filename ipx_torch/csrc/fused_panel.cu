@@ -55,12 +55,13 @@
 //
 // Shapes: m and n multiples of 128, A, d2 and the panels 16-byte aligned.
 
+#include "mma_common.cuh"
 #include "panel_common.cuh"
 
 namespace {
 
 using namespace ipx_tile;
-typedef __nv_bfloat16 bf16;
+using namespace ipx_mma;   // mma_add, the split, the ring
 
 constexpr int FT = 256;             // threads: 8 warps, 4 (rows) x 2 (columns)
 constexpr int CK = KC;              // assembly chunk: 64 columns of A
@@ -78,130 +79,6 @@ static_assert(2 * size_t(SK) * TILE * 4 <= RSTAGE_B,
 static_assert(6 * S_TILE_B <= 3 * A_TILE_B,
               "the split tiles of both phases share one region");
 constexpr size_t FUSED_SMEM = RSTAGES * RSTAGE_B + 3 * A_TILE_B;  // 195584
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return unsigned(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldm_x4(unsigned (&r)[4], const bf16* p) {
-    if (TRANS)
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-                     "{%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                     : "r"(smem_u32(p)) : "memory");
-    else
-        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-                     "{%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                     : "r"(smem_u32(p)) : "memory");
-}
-
-// d += a b, one m16n8k16 tile, bf16 in, f32 sums
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-                 "{%0, %1, %2, %3};\n"
-                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                   "r"(b1));
-}
-
-// run += a b with the product summed alone: a fresh accumulator for the one
-// MMA (16 products, which a tensor core may align and truncate together),
-// then IEEE adds.  A run chained through the MMA accumulator instead loses
-// the truncated bits on every MMA, always towards zero; on the prior-panel
-// subtraction that cost most of the lanes (PERF.md, PR 4).
-__device__ __forceinline__ void mma_add(float (&run)[4], const unsigned (&a)[4],
-                                        unsigned b0, unsigned b1) {
-    float p[4] = {0.f, 0.f, 0.f, 0.f};
-    mma(p, a, b0, b1);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) run[e] = __fadd_rn(run[e], p[e]);
-}
-
-// A warp's 32 x 64 block of sums: [m tile][n tile][fragment]
-typedef float Frag[2][8][4];
-
-__device__ __forceinline__ void zero_frag(Frag& f) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) f[i][j][e] = 0.f;
-}
-
-// total += run (IEEE adds), the second level of a sum
-__device__ __forceinline__ void add_frag(Frag& tot, const Frag& run) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                tot[i][j][e] = __fadd_rn(tot[i][j][e], run[i][j][e]);
-}
-
-// the exact 3-way split of two floats, each part packed as a bf16 pair
-__device__ __forceinline__ void split2(float a, float b, unsigned& hi,
-                                       unsigned& mid, unsigned& lo) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    a = __fsub_rn(a, __low2float(h));
-    b = __fsub_rn(b, __high2float(h));
-    __nv_bfloat162 md = __floats2bfloat162_rn(a, b);
-    a = __fsub_rn(a, __low2float(md));
-    b = __fsub_rn(b, __high2float(md));
-    __nv_bfloat162 l = __floats2bfloat162_rn(a, b);
-    hi = *reinterpret_cast<unsigned*>(&h);
-    mid = *reinterpret_cast<unsigned*>(&md);
-    lo = *reinterpret_cast<unsigned*>(&l);
-}
-
-// eight floats -> their hi, mid and lo parts as 16 bytes each
-__device__ __forceinline__ void split8(const float* x, uint4& hi, uint4& mid,
-                                       uint4& lo) {
-    split2(x[0], x[1], hi.x, mid.x, lo.x);
-    split2(x[2], x[3], hi.y, mid.y, lo.y);
-    split2(x[4], x[5], hi.z, mid.z, lo.z);
-    split2(x[6], x[7], hi.w, mid.w, lo.w);
-}
-
-// The ring: issue(c) asks for chunk c (nothing past the last) and commits one
-// cp.async group; convert(c) splits the landed chunk c into the bf16 tiles;
-// multiply(c) runs the warps' MMAs on them.  Chunk c + RSTAGES - 1 goes into
-// the stage that chunk c - 1 left, once every warp is past it.
-template <class Issue, class Convert, class Multiply>
-__device__ __forceinline__ void ring(int nc, Issue issue, Convert convert,
-                                     Multiply multiply) {
-#pragma unroll
-    for (int c = 0; c < RSTAGES - 1; ++c) issue(c);
-    for (int c = 0; c < nc; ++c) {
-        cp_wait<RSTAGES - 2>();         // this thread's copies of chunk c
-        __syncthreads();                // everyone's; the split tiles free
-        convert(c);
-        issue(c + RSTAGES - 1);
-        __syncthreads();                // the split tiles written
-        multiply(c);
-    }
-    cp_wait<0>();
-    __syncthreads();                    // the ring may be reused
-}
 
 __global__ void __launch_bounds__(FT, 1)
 fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
@@ -297,7 +174,7 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
             }
             add_frag(tot, run);
         };
-        ring(n / CK, issue, convert, multiply);
+        ring<RSTAGES>(n / CK, issue, convert, multiply);
     }
 
     // ---- start tile: J scaling, reg; parked in C ---------------------------
@@ -407,7 +284,7 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
             }
             if ((c & 3) == 3) add_frag(tot, run);   // the panel is done
         };
-        ring(4 * k, issue, convert, multiply);
+        ring<RSTAGES>(4 * k, issue, convert, multiply);
     }
 
     // ---- C = start - total, the one subtraction; each thread reads back what

@@ -1,5 +1,5 @@
 // Register-tiled 128 x 128 float32 tile products, shared by the normal-matrix
-// assembly (assemble_sym.cu), the panel kernels of the left-looking factors
+// assembly of a float32 A (assemble_sym.cu), the panel kernels of the left-looking factors
 // (factor_panels.cu) and the right-looking factor (cholesky_right.cu).
 //
 // One block of 256 threads owns one 128 x 128 output tile.  Thread (ty, tx) of
@@ -82,7 +82,7 @@ inline int fill_panels(PanelPtrs& out, const void* const* src, int k) {
 // from the thread's base ty*4 (or tx*4)
 __device__ __forceinline__ int tile_off(int e) { return (e < 4) ? e : 60 + e; }
 
-// eight consecutive k-entries of one row of A, as floats, zero outside
+// eight bf16 values (16 bytes) as floats
 __device__ __forceinline__ void unpack8(const uint4& q, float* out) {
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
@@ -93,17 +93,7 @@ __device__ __forceinline__ void unpack8(const uint4& q, float* out) {
     }
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* row, int k, int n,
-                                      bool row_ok, bool vec_ok, float* out) {
-    if (row_ok && vec_ok && k + 8 <= n) {
-        unpack8(*reinterpret_cast<const uint4*>(row + k), out);
-        return;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-        out[e] = (row_ok && k + e < n) ? __bfloat162float(row[k + e]) : 0.f;
-}
-
+// eight consecutive k-entries of one row of A, zero outside
 __device__ __forceinline__ void load8(const float* row, int k, int n,
                                       bool row_ok, bool vec_ok, float* out) {
     if (row_ok && vec_ok && k + 8 <= n) {

@@ -17,12 +17,18 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+def time_ms(fn, reps: int = 10, warm: int = 2, queued: bool = False) -> float:
     """Mean device time of ``fn()`` in ms over ``reps`` calls after ``warm``
-    warm-up calls, between two CUDA events on the current stream."""
+    warm-up calls, between two CUDA events on the current stream.  With
+    ``queued`` the device first spins for about 25 ms, so the calls are all
+    enqueued before the first runs: the time is then the kernels' back to
+    back, not the host's time to launch them (which is what a kernel of a
+    few tens of microseconds would otherwise show)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()

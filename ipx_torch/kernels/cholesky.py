@@ -3,7 +3,8 @@ triangular solves (counterpart of ``ipx/kernels/cholesky.py``).
 
 ``assemble_sym_batched`` computes ``M[b] = (A[b] * d2[b]) @ A[b]^T`` over the
 lower triangle of 128 x 128 tiles only, symmetrises the diagonal tiles and
-mirrors the rest, so M is exactly symmetric (``csrc/assemble_sym.cu``).
+mirrors the rest, so M is exactly symmetric (``csrc/assemble_sym.cu``: the
+tensor cores for a bf16 A, as the fused panel stage).
 
 The factor of ``chol_backend="pallas_left"`` is left-looking over 128-row
 panels and comes out as ``(panels, W)``: ``panels[k]`` is ``(B, NB, m - k NB)``,
@@ -105,9 +106,11 @@ def _stream(t: torch.Tensor) -> int:
 def assemble_sym_batched(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """A (B, m, n) f32 or bf16, d2 (B, n) f32 -> M (B, m, m) f32, exactly
     symmetric.  Any m, n: ragged tile edges are masked in the kernel.  Always
-    f32-faithful (A is upcast in registers, the products are f32 FMAs,
-    summed in two levels: 64-column chunks, then the chunk sums); the 2-term
-    "high" assembly mode of ``ipx`` has no counterpart."""
+    f32-faithful, summed in two levels (64-column chunks, then the chunk
+    sums): a bf16 A on the tensor cores with the exact 3-way split of
+    f32(A * d2), every MMA summed alone, the diagonal on the CUDA cores; an
+    f32 A in f32 FMAs.  The 2-term "high" assembly mode of ``ipx`` has no
+    counterpart."""
     if A.ndim != 3:
         raise ValueError(f"A must be (B, m, n), got {tuple(A.shape)}")
     if A.dtype not in (torch.float32, torch.bfloat16):

@@ -7,11 +7,17 @@ Imports ``ipx_torch`` from the checkout given, builds its kernels and prints
 one JSON line: the card, the build seconds, and CUDA-event times at B=256,
 m=1024, n=2048 (bf16 A) of the eight panel launches of the fused factor, the
 whole fused factor, ``ata_apply``, ``a_matvec`` (plain and squared),
-``at_matvec``, and ``factor_lt_panels`` / ``factor_lt_batched`` on the
-assembled matrix.  To compare a change with its parent in one call, export
-the parent (``git archive``) into a git-ignored directory and run parent,
-change, change, parent.  Needs a CUDA device.
+``at_matvec``, ``assemble_sym_batched``, ``factor_lt_panels`` /
+``factor_lt_batched`` on the assembled matrix, and the pair-solves
+``chol_solve_batched_panels`` (at B=256 and on the first 16 instances) and
+``chol_solve_batched_lt`` on the fused factor, and a hash of the fused
+factor's and the panel pair-solve's bits.  The pair-solves are timed
+queued behind a spinning kernel, so that at B=16 the time is the kernel's
+and not the host's time to launch it.  To compare a change with its parent
+in one call, export the parent (``git archive``) into a git-ignored
+directory and run parent, change, change, parent.  Needs a CUDA device.
 """
+import hashlib
 import json
 import sys
 import time
@@ -55,6 +61,18 @@ Ms = pk.assemble_sym_batched(A, d2)
 Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
 Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
 out = {"tag": tag, "build_s": tb, "card": nvidia_smi_line()}
+
+
+def sha(*ts) -> str:
+    """Hash of the bits of the first 16 instances: two checkouts whose
+    kernels agree bit for bit print the same."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t[:16].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+out["factor_fused_panels_sha"] = sha(*panels, W)
 out["panel_stages_x8"] = time_ms(stages, reps=5, warm=1)
 out["factor_fused_panels"] = time_ms(
     lambda: pk.factor_fused_panels(A, d2, j, reg), reps=5, warm=1)
@@ -66,4 +84,37 @@ out["factor_lt_panels"] = time_ms(lambda: pk.factor_lt_panels(Ms), reps=5,
                                   warm=1)
 out["factor_lt_batched"] = time_ms(lambda: pk.factor_lt_batched(Ms), reps=5,
                                    warm=1)
+out["assemble_sym_batched"] = time_ms(lambda: pk.assemble_sym_batched(A, d2),
+                                      reps=5, warm=1)
+del Ms
+
+
+def queued_ms(fn, reps=20):
+    """Device time of fn() with every call enqueued before the first runs:
+    the device spins for about 25 ms behind the warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+rhs = torch.randn(B, m, **kw)
+p16 = tuple(p[:16].contiguous() for p in panels)
+W16, rhs16 = W[:16].contiguous(), rhs[:16].contiguous()
+out["chol_solve_batched_panels"] = queued_ms(
+    lambda: pk.chol_solve_batched_panels(panels, W, rhs))
+out["chol_solve_batched_panels_b16"] = queued_ms(
+    lambda: pk.chol_solve_batched_panels(p16, W16, rhs16))
+out["chol_solve_batched_panels_sha"] = sha(
+    pk.chol_solve_batched_panels(panels, W, rhs))
+LT = pk.lt_of_panels(panels)
+out["chol_solve_batched_lt"] = queued_ms(
+    lambda: pk.chol_solve_batched_lt(LT, W, rhs))
 print(json.dumps(out), flush=True)

@@ -83,20 +83,39 @@ def test_stripe_partials(n, W, partials):
     assert tfk.stripe_partials(n, W) == partials
 
 
+def _c_expr(expr: str) -> str:
+    """A C integer expression of the sources as Python: comments dropped,
+    unsigned suffixes dropped, division truncating, && as and, lines
+    joined."""
+    expr = re.sub(r"//[^\n]*", "", expr)
+    expr = re.sub(r"\b(\d+)u\b", r"\1", expr)
+    expr = expr.replace("/", "//").replace("&&", " and ")
+    return "(" + expr + ")"
+
+
 def _constexprs(*sources: str) -> dict:
     """The integer ``constexpr`` values of the sources, evaluated in order
-    (``size_t(x)`` as x); those that need what is not known here are left
+    (``size_t(x)`` as x, ``sizeof`` of the types they use, the build's
+    ``IPX_PANEL_MAX_M``); those that need what is not known here are left
     out."""
-    env = {"size_t": int}
+    env = {"size_t": int, "sizeof": lambda t: t, "float": 4, "double": 8,
+           "short2": 4, "IPX_PANEL_MAX_M": _build.PANEL_MAX_M}
     for source in sources:
-        text = (CSRC / source).read_text()
+        text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
         for name, expr in re.findall(
                 r"constexpr\s+(?:int|size_t)\s+(\w+)\s*=\s*([^;]+);", text):
             try:
-                env[name] = eval(expr, {}, env)  # noqa: S307 - own source
+                env[name] = eval(_c_expr(expr), {}, env)  # noqa: S307
             except (NameError, SyntaxError):
                 continue
     return env
+
+
+def _static_asserts(source: str) -> list:
+    """The conditions of the source's static_asserts, as Python."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    return [_c_expr(c) for c in
+            re.findall(r"static_assert\(\s*([^,]+),", text)]
 
 
 def test_fused_panel_smem_fits_one_block():
@@ -113,6 +132,113 @@ def test_fused_panel_smem_fits_one_block():
         assert eval(cond, {}, c), cond  # noqa: S307 - own source
     # the launch asks for exactly that size
     assert "int(FUSED_SMEM)" in text and "FT, FUSED_SMEM," in text
+
+
+def test_assembly_smem_fits_one_block():
+    """The tensor-core assembly's ring, split tiles and staged output tile,
+    as the source computes them, within the 227 KB one block may ask for;
+    its static_assert (the finished tile fits the ring's region) holds, the
+    size in its comment is right, and the launch asks for exactly that."""
+    c = _constexprs("panel_common.cuh", "assemble_sym.cu")
+    text = (CSRC / "assemble_sym.cu").read_text()
+    assert c["ASM_SMEM"] <= 227 * 1024
+    assert f"// {c['ASM_SMEM']}" in text
+    assert c["OUT_B"] == c["TILE"] * (c["TILE"] + 1) * 4
+    asserts = _static_asserts("assemble_sym.cu")
+    assert len(asserts) == 1
+    for cond in asserts:
+        assert eval(cond, {}, c), cond  # noqa: S307 - own source
+    assert "int(ASM_SMEM)" in text and "FT, ASM_SMEM," in text
+    # the float32 path keeps the CUDA-core tile product and its parked total
+    assert "assemble_sym_f32_kernel<<<grid, THREADS, TOT_BYTES," in text
+
+
+def test_tensor_core_sources_share_one_mma_header():
+    """Both tensor-core kernels include the shared header and define none of
+    its helpers again."""
+    helpers = ("void cp16(", "void ldm_x4(", "void mma(", "void mma_add(",
+               "void split2(", "void split8(", "void ring(", "typedef float Frag",
+               "void zero_frag(", "void add_frag(")
+    header = (CSRC / "mma_common.cuh").read_text()
+    for h in helpers:
+        assert h in header, h
+    for source in ("fused_panel.cu", "assemble_sym.cu"):
+        text = (CSRC / source).read_text()
+        assert '#include "mma_common.cuh"' in text, source
+        for h in helpers:
+            assert h not in text, (source, h)
+
+
+def _pair_smem(nb: int, c: dict) -> int:
+    """Shared memory of a pair-solve block for nb column blocks, by the
+    layout the source documents: the copy ring; its own blocks of r and x,
+    y_k and the partials two steps each, the row-group partials and one
+    vector, as doubles; the tile list, two shorts an entry."""
+    own = -(-nb // c["CL"])
+    doubles = (2 * own * 128 + 2 * 128 + 2 * c["CL"] * 128
+               + c["PWARPS"] * 128 + 128)
+    return (c["RING"] * c["CHUNK_F"] * 4 + 8 * doubles
+            + 4 * 2 * own * (nb + 1))
+
+
+def test_pair_solve_smem_formula_matches_the_source():
+    text = (CSRC / "solve_panels.cu").read_text()
+    assert ("constexpr int owned(int nb) { return (nb + CL - 1) / CL; }"
+            in text)
+    assert ("constexpr int list_len(int nb) "
+            "{ return 2 * owned(nb) * (nb + 1); }") in text
+    assert ("""    return size_t(RING) * CHUNK_F * sizeof(float)
+        + (size_t(2) * owned(nb) * NB + 2 * NB + size_t(2) * CL * NB
+           + size_t(PWARPS) * NB + NB) * sizeof(double)
+        + size_t(list_len(nb)) * sizeof(short2);""") in text
+    assert "static_assert(pair_smem_bytes(MAX_PANELS) <= SMEM_LIMIT," in text
+    # the launch asks for the size of its m, the attribute for the largest
+    assert "cfg.dynamicSmemBytes = pair_smem_bytes(nb);" in text
+    assert "int(pair_smem_bytes(MAX_PANELS))" in text
+
+
+@pytest.mark.parametrize("m,nbytes,per_sm", [
+    # ring 3 x 16 KB; doubles: r and x of its own blocks (all nb of them),
+    # y_k and partials two steps each, eight row groups, one vector; the
+    # tile list 2 nb (nb + 1) entries of 4 bytes
+    # the largest m: one block an SM
+    (_build.PANEL_MAX_M, 49152 + 8 * (2 * 38 * 128 + 4 * 128 + 9 * 128)
+     + 4 * 2 * 38 * 39, 1),
+    # the main path's m: two blocks share an SM (228 KB, 1 KB reserved for
+    # each), so a batch of 256 runs at once on 132 SMs
+    (1024, 49152 + 8 * (2 * 8 * 128 + 4 * 128 + 9 * 128) + 4 * 2 * 8 * 9, 2),
+    (128, 49152 + 8 * (2 * 128 + 4 * 128 + 9 * 128) + 4 * 2 * 2, 3),
+])
+def test_pair_solve_smem(m, nbytes, per_sm):
+    """The cluster pair-solve's constants (a cluster of CL blocks of 256
+    threads, 32-row chunks of 16 KB in a ring of three) and its shared memory
+    per block at m, within one block's 227 KB; every static_assert of the
+    source holds."""
+    c = _constexprs("panel_common.cuh", "solve_panels.cu")
+    assert c["MAX_PANELS"] == _build.PANEL_MAX_M // 128 == 38
+    assert (c["CL"], c["PT"], c["RCH"], c["CHUNKS"], c["RING"]) == \
+        (1, 256, 32, 4, 3)
+    assert _pair_smem(m // 128, c) == nbytes
+    assert nbytes <= c["SMEM_LIMIT"] == 227 * 1024
+    assert per_sm * (nbytes + 1024) <= 228 * 1024 < \
+        (per_sm + 1) * (nbytes + 1024)
+    env = dict(c, pair_smem_bytes=lambda nb: _pair_smem(nb, c))
+    for cond in _static_asserts("solve_panels.cu"):
+        if "tri_smem_bytes" in cond:
+            continue                # a function of m: checked by nvcc
+        assert eval(cond, {}, env), cond  # noqa: S307 - own source
+
+
+def test_pair_solve_grid_is_the_clusters_the_card_runs():
+    """The persistent grid: min(B, clusters resident at once) clusters of CL
+    blocks, the clusters the card runs found by the occupancy query and the
+    cluster size given at launch, not fixed in the kernel."""
+    text = (CSRC / "solve_panels.cu").read_text()
+    assert "cudaOccupancyMaxActiveClusters(&act, kern, &cfg)" in text
+    assert "int& act = active[dev][nb];" in text
+    assert "cfg.gridDim = dim3(CL * (B < act ? B : act));" in text
+    assert "attr[0].val.clusterDim.x = CL;" in text
+    assert "__cluster_dims__" not in text
 
 
 def test_every_source_is_built():
