@@ -171,3 +171,31 @@ def test_stack_lps_rejects_mixed_shapes_and_empty():
     with pytest.raises(ValueError):
         ipx_torch.solve_batch(a, device="cpu", options=ipx_torch.SolverOptions(
             augmented_fallback=False))
+
+
+def test_assembled_cg_operator_iterations_match_ipx():
+    """cg_operator="assembled" is the reference's behaviour: on the same
+    seeded instances both packages end every lane OPTIMAL and need the same
+    median iterations to within one, with the default (matrix-free)
+    operator as the control.  (probes/assembled_cg_cpu.py compares them on
+    larger batches.)"""
+    insts = _bf16_instances(8, 96, 192, 500)
+    medians = {}
+    for op in ("matrix_free", "assembled"):
+        kw = dict(chol_backend="xla", a_storage="bfloat16",
+                  augmented_fallback=False, max_iter=64, cg_operator=op)
+        sj = ipx.solve_batch([jmake_lp(c, A, b) for c, A, b, _ in insts],
+                             options=ipx.SolverOptions.throughput(**kw))
+        st = ipx_torch.solve_batch(
+            [tmake_lp(c, A, b, device="cpu") for c, A, b, _ in insts],
+            options=ipx_torch.SolverOptions.throughput(**kw), device="cpu")
+        for a, b_, (_, _, _, obj) in zip(st, sj, insts):
+            assert a.optimal and b_.optimal, (op, a.status_name,
+                                              b_.status_name)
+            assert _rel(a.objective, obj) <= 1e-5
+        medians[op] = (float(np.median([s.iterations for s in sj])),
+                       float(np.median([s.iterations for s in st])))
+    for op, (mj, mt) in medians.items():
+        assert abs(mj - mt) <= 1.0, (op, medians)
+    assert abs(medians["assembled"][1] - medians["matrix_free"][1]) <= 1.0, \
+        medians
