@@ -78,7 +78,10 @@ static_assert(2 * size_t(SK) * TILE * 4 <= RSTAGE_B,
               "a raw stage holds a subtraction chunk");
 static_assert(6 * S_TILE_B <= 3 * A_TILE_B,
               "the split tiles of both phases share one region");
-constexpr size_t FUSED_SMEM = RSTAGES * RSTAGE_B + 3 * A_TILE_B;  // 195584
+static_assert(FT == 2 * TILE, "two threads a column of the diagonal");
+constexpr size_t DIAG_B = size_t(FT) * 4;   // a diagonal's sums, two halves
+constexpr size_t FUSED_SMEM = RSTAGES * RSTAGE_B + 3 * A_TILE_B
+    + 2 * DIAG_B;                                      // 197632
 
 __global__ void __launch_bounds__(FT, 1)
 fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
@@ -86,6 +89,10 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
                    PanelRows prior, float* C, int m, int n, int k) {
     extern __shared__ __align__(128) unsigned char sm[];
     unsigned char* split = sm + RSTAGES * RSTAGE_B;
+    // the diagonal of the first tile (t == k) on the CUDA cores: the
+    // assembly's (its second half zero) and the subtraction's in two halves
+    float* dasm = reinterpret_cast<float*>(split + 3 * A_TILE_B);
+    float* dsub = dasm + FT;
 
     const int t = k + blockIdx.x;                 // column tile of M
     const size_t b = blockIdx.y;
@@ -95,8 +102,16 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
     const int g = lane >> 2, q = lane & 3;        // fragment row, column pair
     float* Cb = C + b * size_t(TILE) * w + size_t(t - k) * TILE;
 
+    const bool diag = t == k;
     Frag tot, run;
     zero_frag(tot);
+    // entry r of dasm is only ever touched by the thread that converts row r
+    // (tid / 8 + 32 u, tid % 8 == 0)
+    if (diag && (tid & 7) == 0)
+        for (int r = tid >> 3; r < TILE; r += FT / 8) {
+            dasm[r] = 0.f;
+            dasm[TILE + r] = 0.f;
+        }
 
     // ---- assembly: sum_c x[r, c] a[col, c] over 64-column chunks ----------
     {
@@ -127,6 +142,26 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
             const float* dd =
                 reinterpret_cast<const float*>(st + RX_B + A_TILE_B);
             bf16* hi = reinterpret_cast<bf16*>(split);
+            if (diag) {
+                // (A_k d2 A_k^T)[r][r] from the raw chunk, in a pass of its
+                // own (inside the split it slowed every block): a chain of 8
+                // FMAs a thread, the row's 8 threads by a fixed tree, the
+                // chunk into the total (as assemble_sym.cu)
+                for (int e = tid; e < TILE * CK / 8; e += FT) {
+                    const int r = e >> 3, s8 = (e & 7) * 8;
+                    float a[8];
+                    unpack8(*reinterpret_cast<const uint4*>(rx + r * CK + s8),
+                            a);
+                    float dp = 0.f;
+#pragma unroll
+                    for (int i = 0; i < 8; ++i)
+                        dp = __fmaf_rn(__fmul_rn(a[i], dd[s8 + i]), a[i], dp);
+                    dp = __fadd_rn(dp, __shfl_xor_sync(0xffffffffu, dp, 1));
+                    dp = __fadd_rn(dp, __shfl_xor_sync(0xffffffffu, dp, 2));
+                    dp = __fadd_rn(dp, __shfl_xor_sync(0xffffffffu, dp, 4));
+                    if ((tid & 7) == 0) dasm[r] = __fadd_rn(dasm[r], dp);
+                }
+            }
             for (int e = tid; e < TILE * CK / 8; e += FT) {
                 const int r = e >> 3, s8 = (e & 7) * 8;
                 float x[8];
@@ -176,7 +211,6 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
         };
         ring<RSTAGES>(n / CK, issue, convert, multiply);
     }
-
     // ---- start tile: J scaling, reg; parked in C ---------------------------
     {
         const float* jb = jv + b * size_t(m);
@@ -190,9 +224,13 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
 #pragma unroll
                 for (int ni = 0; ni < 8; ++ni) {
                     const int c = wn * 64 + ni * 8 + 2 * q;
-                    float v0 = __fmul_rn(__fmul_rn(tot[mi][ni][2 * h], jr),
-                                         jb[t * TILE + c]);
-                    float v1 = __fmul_rn(__fmul_rn(tot[mi][ni][2 * h + 1], jr),
+                    const float dr = diag ? __fadd_rn(dasm[r], dasm[TILE + r])
+                                          : 0.f;
+                    const float u0 = (diag && r == c) ? dr : tot[mi][ni][2 * h];
+                    const float u1 = (diag && r == c + 1)
+                        ? dr : tot[mi][ni][2 * h + 1];
+                    float v0 = __fmul_rn(__fmul_rn(u0, jr), jb[t * TILE + c]);
+                    float v1 = __fmul_rn(__fmul_rn(u1, jr),
                                          jb[t * TILE + c + 1]);
                     if (t == k && r == c) v0 = __fadd_rn(v0, rg);
                     if (t == k && r == c + 1) v1 = __fadd_rn(v1, rg);
@@ -286,6 +324,35 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
         };
         ring<RSTAGES>(4 * k, issue, convert, multiply);
     }
+    if (diag) {
+        // its diagonal, sum_j sum_p P_j[p][lo + r]^2, on the CUDA cores from
+        // the prior panels again (L2 holds them): thread (h, r) takes column
+        // r, rows 64 h .. +63 of each panel, in chains of 8 FMAs whose sums
+        // make a panel's run and the runs a total; the halves are added in
+        // the epilogue
+        const int r = tid & (TILE - 1), h = tid / TILE;
+        float total = 0.f;
+        for (int jj = 0; jj < k; ++jj) {
+            size_t ld;
+            const float* col = prior.at(jj, b, m, ld) + size_t(64 * h) * ld
+                               + (k - jj) * TILE + r;
+            float v[64];                          // all loads in flight
+#pragma unroll
+            for (int p = 0; p < 64; ++p) v[p] = col[size_t(p) * ld];
+            float prun = 0.f;
+#pragma unroll
+            for (int p0 = 0; p0 < 64; p0 += 8) {
+                float ch = 0.f;
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                    ch = __fmaf_rn(v[p0 + i], v[p0 + i], ch);
+                prun = __fadd_rn(prun, ch);
+            }
+            total = __fadd_rn(total, prun);
+        }
+        dsub[h * TILE + r] = total;
+        __syncthreads();
+    }
 
     // ---- C = start - total, the one subtraction; each thread reads back what
     // it wrote ------------------------------------------------------------------
@@ -299,8 +366,12 @@ fused_panel_kernel(const bf16* __restrict__ A, const float* __restrict__ d2,
                 const int c = wn * 64 + ni * 8 + 2 * q;
                 float2* at = reinterpret_cast<float2*>(Cb + size_t(r) * w + c);
                 const float2 s = *at;
-                *at = make_float2(__fsub_rn(s.x, tot[mi][ni][2 * h]),
-                                  __fsub_rn(s.y, tot[mi][ni][2 * h + 1]));
+                const float dr = diag ? __fadd_rn(dsub[r], dsub[TILE + r])
+                                      : 0.f;
+                const float u0 = (diag && r == c) ? dr : tot[mi][ni][2 * h];
+                const float u1 = (diag && r == c + 1) ? dr
+                                                      : tot[mi][ni][2 * h + 1];
+                *at = make_float2(__fsub_rn(s.x, u0), __fsub_rn(s.y, u1));
             }
         }
 }

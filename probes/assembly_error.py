@@ -1,59 +1,178 @@
-"""Error of the normal-matrix assembly against float64, by where it sums.
+"""Error against float64 of the sums that run on the tensor cores, by where
+they sum, with the diagonal apart (a sum whose terms all have one sign shows
+a biased rounding there as a mean away from zero).
 
-    python3 probes/assembly_error.py
+    python3 probes/assembly_error.py [root of a checkout]
 
-``assemble_sym_batched`` on three batches of 8 (m=1024, n=2048, bf16 A, d2
-spread over many decades as in mid-solve): with the bf16 A itself (the
-tensor cores), with the same values as float32 (the CUDA cores) and the
-plain version (one float32 matmul), each against the float64 product.  One
-JSON line each, means over the batches: the largest error and the RMS error
-relative to the largest entry of M, and, on the diagonal, the mean and RMS
-of the relative error (a sum whose terms all have one sign shows a biased
-rounding there as a mean away from zero); the mean of all errors relative
-to the largest entry.  The first line is the card's name and power limit.
-Needs a CUDA device.
+Imports ``ipx_torch`` from the checkout given (default: this one), builds
+its kernels, prints the card's name and power limit, then one JSON line for
+each of:
+
+- ``assembly``: ``assemble_sym_batched`` on three batches of 8 (m=1024,
+  n=2048, bf16 A, d2 spread over many decades as in mid-solve) with the bf16
+  A itself (the tensor cores), the same values as float32 (the CUDA cores)
+  and the plain version (one float32 matmul): the largest and the RMS error
+  relative to the largest entry of M, the mean of all errors so scaled, and
+  the mean and RMS of the relative error on the diagonal;
+- ``fused_start_tiles``: the first tile of every panel's C_k from
+  ``factor_fused_panels``' panel kernel, on the same batches (Jacobi scale,
+  reg from 1e-8 to 1e-4), against the float64 value of
+  J (A_k * d2) A_k^T J + reg - sum_j P_j^T P_j with the P_j the kernel's own
+  panels: ``whole``; ``assembly``, the kernel run with reg 0 and zero prior
+  panels; ``subtraction``, the kernel run with d2 = 0 (the assembly is then
+  exactly 0) and reg 0, relative to the sum it subtracts.  The mean and RMS
+  of the relative error on the diagonal, and the RMS of the off-diagonal
+  error relative to the largest entry of the tile;
+- ``right_update``: the trailing update of ``cholesky_batched``'s first
+  panel (the diagonal factor, the panel TRSM and the update of the C entry
+  points) on the scaled regularised matrix of the same batches, against
+  T - P P^T in float64 with P the kernel's own panel: the diagonal's error
+  relative to the sum subtracted (mean, RMS), and the off-diagonal RMS
+  relative to the largest entry of P P^T.
+
+Means are over the batches.  Run it on two checkouts in one call to compare
+them.  Needs a CUDA device.
 """
 import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = (sys.argv[1] if len(sys.argv) > 1 else
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
 from ipx_torch.devinfo import nvidia_smi_line  # noqa: E402
 from ipx_torch.kernels import _build, cholesky as pk  # noqa: E402
+from ipx_torch.kernels import fused as fk  # noqa: E402
 
 SEEDS = (1, 2, 3)
+B, M, N = 8, 1024, 2048
+NB = pk.NB
+
+
+def _acc(stats: dict, key: str, values: dict) -> None:
+    s = stats.setdefault(key, dict.fromkeys(values, 0.0))
+    for k, v in values.items():
+        s[k] += float(v) / len(SEEDS)
+
+
+def _diag_stats(E, R, off_scale) -> dict:
+    """Diagonal error E relative to R (mean, RMS) and the off-diagonal RMS
+    of E / off_scale; E, R (B', n, n) float64."""
+    d = torch.diagonal(E, dim1=-2, dim2=-1) / torch.diagonal(R, dim1=-2,
+                                                             dim2=-1)
+    off = E - torch.diag_embed(torch.diagonal(E, dim1=-2, dim2=-1))
+    return {"diag_mean_rel": d.mean(), "diag_rms_rel": (d ** 2).mean().sqrt(),
+            "offdiag_rms_rel": ((off / off_scale) ** 2).mean().sqrt()}
+
+
+def assembly(stats, A, d2) -> None:
+    A64 = A.double()
+    R = torch.matmul(A64 * d2.double().unsqueeze(1), A64.mT)
+    scale = R.abs().amax(dim=(1, 2), keepdim=True)
+    for name, Mk in (("tensor_cores", pk.assemble_sym_batched(A, d2)),
+                     ("cuda_cores", pk.assemble_sym_batched(A.float(), d2)),
+                     ("plain", pk.assemble_sym_batched_plain(A, d2))):
+        E = Mk.double() - R
+        dr = torch.diagonal(E / R, dim1=1, dim2=2)
+        _acc(stats, "assembly/" + name, {
+            "max_rel": (E.abs() / scale).max(),
+            "rms_rel": ((E / scale) ** 2).mean().sqrt(),
+            "diag_mean_rel": dr.mean(), "diag_rms_rel": (dr ** 2).mean().sqrt(),
+            "mean_rel": (E / scale).mean()})
+
+
+def fused_start_tiles(stats, A, d2, j, reg) -> None:
+    panels, _ = pk.factor_fused_panels(A, d2, j, reg)
+    zero_reg = torch.zeros_like(reg)
+    zeros = tuple(torch.zeros_like(p) for p in panels)
+    A64, j64 = A.double(), j.double()
+    x64 = A64 * d2.double().unsqueeze(1)
+    variants = {
+        "whole": (pk._fused_panel_rows(A, d2, j, reg), panels, True, True),
+        "assembly": (pk._fused_panel_rows(A, d2, j, zero_reg), zeros, True,
+                     False),
+        "subtraction": (pk._fused_panel_rows(A, torch.zeros_like(d2), j,
+                                             zero_reg), panels, False, True),
+    }
+    for name, (rows, prior, asm, sub) in variants.items():
+        got, ref = [], []
+        for k in range(M // NB):
+            o, w = k * NB, M - k * NB
+            C = torch.empty(B, NB, w, device="cuda")
+            rows(k, prior[:k], C)
+            R = torch.zeros(B, NB, NB, dtype=torch.float64, device="cuda")
+            if asm:
+                R += (torch.matmul(x64[:, o:o + NB], A64[:, o:o + NB].mT)
+                      * j64[:, o:o + NB].unsqueeze(2)
+                      * j64[:, o:o + NB].unsqueeze(1))
+            S = torch.zeros_like(R)
+            for jj, P in enumerate(panels[:k]):
+                lo = (k - jj) * NB
+                Pk = P[:, :, lo:lo + NB].double()
+                S += torch.matmul(Pk.mT, Pk)
+            if name == "whole":
+                R += torch.diag_embed(reg.double().unsqueeze(-1).expand(B, NB))
+            if sub:
+                R -= S
+            if name == "subtraction" and k == 0:
+                continue                    # nothing subtracted
+            got.append(C[:, :, :NB].double())
+            ref.append(R)
+        R = torch.cat(ref)
+        scale = R.abs().amax(dim=(1, 2), keepdim=True)
+        _acc(stats, "fused_start_tiles/" + name,
+             _diag_stats(torch.cat(got) - R, R, scale))
+
+
+def right_update(stats, A, d2, j, reg) -> None:
+    """One panel step of the right-looking factor through the C entry
+    points: the diagonal factor, the TRSM and the update of panel 0."""
+    A64, j64 = A.double(), j.double()
+    Ms64 = torch.matmul(A64 * d2.double().unsqueeze(1), A64.mT)
+    Ms64 = Ms64 * j64.unsqueeze(2) * j64.unsqueeze(1)
+    Ms64.diagonal(dim1=1, dim2=2).add_(reg.double().unsqueeze(-1))
+    T = Ms64.float().contiguous()
+    T0 = T.double()
+    W = torch.empty(B, M // NB, NB, NB, device="cuda")
+    tile = T[:, :NB, :NB]
+    pk.diag_factor_inv(tile, tile, W[:, 0], lower_out=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    trsm = pk._entry("cholesky_right", "ipx_right_trsm",
+                     [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
+    update = pk._entry("cholesky_right", "ipx_right_update",
+                       [pk._P, pk._I, pk._I, pk._I, pk._P])
+    for fn, args in ((trsm, (T.data_ptr(), W.data_ptr(), B, M, 0, stream)),
+                     (update, (T.data_ptr(), B, M, 0, stream))):
+        if fn(*args) != 0:
+            raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    P = T[:, NB:, :NB].double()
+    S = torch.matmul(P, P.mT)
+    ref = T0[:, NB:, NB:] - S
+    E = torch.tril(T[:, NB:, NB:].double() - ref)
+    scale = S.abs().amax(dim=(1, 2), keepdim=True)
+    _acc(stats, "right_update", _diag_stats(E, S, scale))
 
 
 def main() -> int:
     _build.build_all()
-    print(json.dumps({"card": nvidia_smi_line()}), flush=True)
+    print(json.dumps({"card": nvidia_smi_line(), "root": ROOT}), flush=True)
     stats: dict = {}
     for seed in SEEDS:
         g = torch.Generator(device="cuda").manual_seed(seed)
-        A = (torch.randn(8, 1024, 2048, generator=g, device="cuda")
-             / 2048 ** 0.5).to(torch.bfloat16)
-        d2 = torch.exp(3.0 * torch.randn(8, 2048, generator=g, device="cuda"))
-        A64 = A.double()
-        R = torch.matmul(A64 * d2.double().unsqueeze(1), A64.mT)
-        scale = R.abs().amax(dim=(1, 2), keepdim=True)
-        for name, M in (("tensor_cores", pk.assemble_sym_batched(A, d2)),
-                        ("cuda_cores", pk.assemble_sym_batched(A.float(), d2)),
-                        ("plain", pk.assemble_sym_batched_plain(A, d2))):
-            E = M.double() - R
-            dr = torch.diagonal(E / R, dim1=1, dim2=2)
-            s = stats.setdefault(name, dict.fromkeys(
-                ("max_rel", "rms_rel", "diag_mean_rel", "diag_rms_rel",
-                 "mean_rel"), 0.0))
-            s["max_rel"] += float((E.abs() / scale).max()) / len(SEEDS)
-            s["rms_rel"] += float(((E / scale) ** 2).mean().sqrt()) / len(SEEDS)
-            s["diag_mean_rel"] += float(dr.mean()) / len(SEEDS)
-            s["diag_rms_rel"] += float((dr ** 2).mean().sqrt()) / len(SEEDS)
-            s["mean_rel"] += float((E / scale).mean()) / len(SEEDS)
+        A = (torch.randn(B, M, N, generator=g, device="cuda")
+             / N ** 0.5).to(torch.bfloat16)
+        d2 = torch.exp(3.0 * torch.randn(B, N, generator=g, device="cuda"))
+        reg = torch.logspace(-8, -4, B, device="cuda")
+        j = torch.rsqrt(fk.a_matvec(A, d2, square=True))
+        assembly(stats, A, d2)
+        fused_start_tiles(stats, A, d2, j, reg)
+        right_update(stats, A, d2, j, reg)
     for name, s in stats.items():
-        print(json.dumps({"assembly": name, **s}), flush=True)
+        print(json.dumps({"sums": name, **s}), flush=True)
     return 0
 
 

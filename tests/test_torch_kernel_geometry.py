@@ -126,10 +126,14 @@ def test_fused_panel_smem_fits_one_block():
     text = (CSRC / "fused_panel.cu").read_text()
     assert c["FUSED_SMEM"] <= 227 * 1024
     assert f"// {c['FUSED_SMEM']}" in text
-    asserts = re.findall(r"static_assert\(([^,]+),", text)
-    assert len(asserts) == 2
+    asserts = _static_asserts("fused_panel.cu")
+    assert len(asserts) == 3
     for cond in asserts:
         assert eval(cond, {}, c), cond  # noqa: S307 - own source
+    # the ring and the split tiles, then the first tile's diagonal sums on
+    # the CUDA cores (the assembly's and the subtraction's, two halves each)
+    assert c["FUSED_SMEM"] == (4 * (128 * 64 * 2 + 128 * 72 * 2 + 64 * 4)
+                               + 3 * 128 * 72 * 2 + 2 * 256 * 4)
     # the launch asks for exactly that size
     assert "int(FUSED_SMEM)" in text and "FT, FUSED_SMEM," in text
 
