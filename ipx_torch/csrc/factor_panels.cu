@@ -45,17 +45,36 @@
 // terms chained onto the start value in float32 would lose the digits the
 // two-level assembly has just won.
 //
-// diag_factor_inv: one block per instance, the tile in shared memory.  The
-// factor is the column-sequential left-looking form, four lanes owning row i:
-//   L[i][j] = (a[i][j] - sum_{p<j} L[i][p] L[j][p]) / sqrt(max(d_j, tiny)),
-//   d_j = a[j][j] - sum_{p<j} L[j][p]^2,
-// the dot products accumulated in float64 and rounded once on store.  Only
-// the lower triangle of the tile is used (the panel kernels do not
-// symmetrise it).  A block that is not positive definite gets a non-positive
-// or non-finite diagonal entry, which the caller's `ok` test catches; nothing
-// traps.  The inverse W = L^-1 is forward substitution, four lanes owning
-// column c, again float64 sums rounded once per entry.  Latency-bound: about
-// NB^3 / 3 FMAs for each of the two.
+// diag_factor_inv: one block of 256 threads per instance, blocked as the
+// reference's _factor_block_twolevel is, over four leaves of 32 columns
+// (left-looking, leaf j at columns J = 32 j .. 32 j + 31):
+//   C[r][J]  = A[r][J] - sum_{p < 32 j} L[r][p] L[J][p]     rows r >= 32 j,
+//                                                          all threads
+//   L_jj     = chol(C_jj), W_jj = L_jj^-1                  one warp, a lane a
+//                                                          row (a column)
+//   L[r][J]  = C[r][J] L_jj^-T by substitution             a thread a row
+// then, by distance d = i - j = 1, 2, 3 of the blocks below the diagonal,
+//   W_ij     = -W_ii (sum_{p=j}^{i-1} L_ip W_pj)            all threads.
+// Every dot product and update is accumulated in float64, and C of the
+// current block column and the leaf's L stay float64 in shared memory; each
+// entry of L and W is rounded to float32 once, and what later steps read of
+// them is that float32 value, so W is the inverse of the L that is stored.
+// The substitutions keep the column-by-column factor's order within a row
+// (each entry rounded before the next uses it): a product with W_jj in its
+// place rounds the 32 entries of a row independently and, measured against
+// float64, came out up to 1.4x less accurate.  Only the lower triangle of
+// the input is read, from device memory when its block column comes up.  A
+// block that is not positive definite gets a non-positive or non-finite
+// diagonal entry, which the caller's `ok` test catches; nothing traps.
+// Bound on this card: about 2 NB^3 / 3 float64 FMAs an instance (the factor
+// and the inverse), some 0.02 ms at B = 256 on the CUDA cores, against 0.015
+// ms of bytes.  What the parent design lost (two sequential chains of 128
+// dependent dot products, one block an SM in two waves at B = 256) this one
+// shortens to 32-step chains (the leaves, the substitutions); the products
+// between them run on all 256 threads, and the tile is kept as float32 (L in
+// the lower triangle, W^T in the upper shifted by one column) so that 99,840
+// bytes of shared memory let two blocks share an SM and B = 256 runs in one
+// wave.
 //
 // Shapes: m a multiple of 128 (the caller pads the assembled route).
 
@@ -172,14 +191,17 @@ lt_rows_kernel(const float* __restrict__ W, const float* __restrict__ C,
 // ---------------------------------------------------------------------------
 
 constexpr int DN = 128;             // the diagonal block's edge (= TILE)
-constexpr int DQ = 4;               // threads that share one row's (column's)
-                                    // dot product
-constexpr int DTHREADS = DN * DQ;
-constexpr int DLD = DN + 4;         // row stride in shared memory: four rows
-                                    // times four neighbouring entries hit 16
-                                    // different bank pairs, and the spare
-                                    // columns make room for W (below)
-constexpr size_t DIAG_SMEM = (size_t(DN) * DLD + DN) * sizeof(double);
+constexpr int DL = 32;              // leaf edge: one warp, a lane a row
+constexpr int NLEAF = DN / DL;
+constexpr int DTHREADS = 256;
+constexpr int DLD = DN + 1;         // float row stride of the tile: a row and
+                                    // a column both read without bank
+                                    // conflicts, and room for W^T (below)
+constexpr int CLD = DL + 1;         // double row stride of C
+constexpr size_t DIAG_SMEM = size_t(DN) * DLD * sizeof(float)
+    + size_t(DN) * CLD * sizeof(double);                 // 99840
+static_assert(2 * (DIAG_SMEM + 1024) <= 228 * 1024,
+              "two diagonal blocks share an SM");
 
 // max(v, tiny) that lets a NaN through, as the reference's maximum does
 __device__ __forceinline__ double guard_pivot(double v) {
@@ -190,95 +212,215 @@ __device__ __forceinline__ double guard_pivot(double v) {
 // the value a float32 store keeps, as a double
 __device__ __forceinline__ double rnd32(double v) { return double(float(v)); }
 
-// sum over the DQ neighbouring lanes that share a row; every lane of the warp
-// must call it, and all DQ lanes get the same bits
-__device__ __forceinline__ double quad_sum(double v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    return v;
+// Leaf j, one warp: C_jj (Cs rows 0 .. 31, float64) -> L_jj, rounded to
+// float32, into the tile and into Cs (in place), then W_jj = L_jj^-1 in
+// float64, rounded, into the tile's W^T slots.  The factor runs down the
+// columns with lane i owning row i in registers; the inverse runs down the
+// rows with lane c owning column c.
+// Each dot product is split over two chains.
+__device__ __forceinline__ void leaf(float* Ls, double* Cs, int J0,
+                                     int lane) {
+    double a[DL];
+#pragma unroll
+    for (int c = 0; c < DL; ++c) a[c] = Cs[lane * CLD + c];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DL; ++j) {
+        double s0 = a[j], s1 = 0.0;
+#pragma unroll
+        for (int p = 0; p < j; ++p) {
+            const double ljp = Cs[j * CLD + p];
+            if (p & 1) s1 = fma(-a[p], ljp, s1);
+            else s0 = fma(-a[p], ljp, s0);
+        }
+        const double s = s0 + s1;
+        const double dj = __shfl_sync(0xffffffffu, s, j);
+        // row j's entry is d_j / sqrt(max(d_j, tiny)): not positive for a
+        // block that is not positive definite
+        const double l = (lane >= j) ? rnd32(s * rsqrt(guard_pivot(dj)))
+                                     : 0.0;
+        a[j] = l;
+        Cs[lane * CLD + j] = l;
+        __syncwarp();
+    }
+#pragma unroll
+    for (int c = 0; c < DL; ++c)
+        if (c <= lane) Ls[(J0 + lane) * DLD + J0 + c] = float(a[c]);
+
+    double w[DL];                       // w[r] = W_jj[r][lane]
+#pragma unroll
+    for (int r = 0; r < DL; ++r) {
+        double s0 = (r == lane) ? 1.0 : 0.0, s1 = 0.0;
+#pragma unroll
+        for (int p = 0; p < r; ++p) {
+            const double lrp = Cs[r * CLD + p];
+            if (p & 1) s1 = fma(-lrp, w[p], s1);
+            else s0 = fma(-lrp, w[p], s0);
+        }
+        w[r] = (r >= lane) ? (s0 + s1) / guard_pivot(Cs[r * CLD + r]) : 0.0;
+    }
+#pragma unroll
+    for (int r = 0; r < DL; ++r)
+        if (r >= lane) Ls[(J0 + lane) * DLD + J0 + r + 1] = float(w[r]);
 }
 
-// Shared memory holds float32 values widened to double, so the inner loops
-// are loads and float64 FMAs with no conversions (a float32-to-float64
-// conversion costs a warp four times an FMA here).  L sits in the lower
-// triangle of the DN x DLD array; W = L^-1, lower triangular too, goes
-// transposed into the unused upper part shifted by one column:
-// W[r][c] at (c, r + 1), r >= c.  Each dot product is split over DQ lanes
-// (entries p = t, t + DQ, ...): the chains are sequential and short, and 16
-// warps a block are what hides the latency of their loads.
-__global__ void __launch_bounds__(DTHREADS)
+// The tile in shared memory holds L[r][c] at (r, c), c <= r, and W[r][c] at
+// (c, r + 1), r >= c: both float32, as stored.
+__device__ __forceinline__ double wt(const float* Ls, int r, int c) {
+    return double(Ls[c * DLD + r + 1]);
+}
+
+__global__ void __launch_bounds__(DTHREADS, 2)
 diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
                        long long lt_bs, int lt_rs, float* W, long long w_bs,
                        int lower_out) {
-    extern __shared__ double dsm[];
-    double* Ls = dsm;                   // DN x DLD
-    double* ad = dsm + DN * DLD;        // DN: the tile's own diagonal
-    const int tid = threadIdx.x;
-    const int i = tid / DQ, t = tid % DQ;       // row (column) and its lane
+    extern __shared__ __align__(16) unsigned char dsm[];
+    float* Ls = reinterpret_cast<float*>(dsm);                // DN x DLD
+    double* Cs = reinterpret_cast<double*>(
+        dsm + size_t(DN) * DLD * sizeof(float));              // DN x CLD
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    // the products' thread tile: columns 4 cg .. +3, rows rg + 32 k
+    const int cg = tid & 7, rg = tid >> 3;
     const size_t b = blockIdx.x;
     const float* Cb = C + b * c_bs;
 
-    for (int e = tid; e < DN * DN; e += DTHREADS) {
-        const int r = e / DN, c = e % DN;
-        const double v = double(Cb[size_t(r) * c_rs + c]);
-        Ls[r * DLD + c] = v;            // only (r, c <= r) is read below
-        if (r == c) ad[r] = v;
-    }
-    __syncthreads();
-
-    // ---- Cholesky, column by column; DQ lanes own row i ---------------------
-    const double* li = Ls + i * DLD;
-    for (int j = 0; j < DN; ++j) {
-        const double* lj = Ls + j * DLD;
-        double s = 0.0, d = 0.0;
-        const int end = (i >= j) ? j : 0;       // rows above the diagonal idle
-        for (int p = t; p < end; p += DQ) {
-            const double a = li[p], c = lj[p];
-            s = fma(a, c, s);
-            d = fma(c, c, d);
+    for (int j = 0; j < NLEAF; ++j) {
+        const int J0 = j * DL, nk = NLEAF - j;      // row blocks from J0 on
+        // ---- C[r][J] = A[r][J] - sum_{p<J0} L[r][p] L[J][p], rows r >= J0
+        {
+            double acc[NLEAF][4] = {};
+#pragma unroll 4
+            for (int p = 0; p < J0; ++p) {
+                double lc[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    lc[e] = double(Ls[(J0 + cg * 4 + e) * DLD + p]);
+#pragma unroll
+                for (int k = 0; k < NLEAF; ++k) {
+                    if (k < nk) {
+                        const double lr =
+                            double(Ls[(J0 + rg + DL * k) * DLD + p]);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            acc[k][e] = fma(lr, lc[e], acc[k][e]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < NLEAF; ++k) {
+                if (k < nk) {
+                    const int r = rg + DL * k;
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int c = cg * 4 + e;
+                        // the leaf's upper triangle is neither read nor used
+                        Cs[r * CLD + c] = (r >= c)
+                            ? double(Cb[size_t(J0 + r) * c_rs + J0 + c])
+                              - acc[k][e]
+                            : 0.0;
+                    }
+                }
+            }
         }
-        s = quad_sum(s);
-        d = quad_sum(d);
-        if (i >= j && t == 0) {
-            const double dj = ad[j] - d;
-            // row j's entry is d_j / sqrt(max(d_j, tiny)): not positive for a
-            // block that is not positive definite
-            Ls[i * DLD + j] = rnd32((li[j] - s) * rsqrt(guard_pivot(dj)));
+        __syncthreads();
+        if (warp == 0) leaf(Ls, Cs, J0, lane);
+        __syncthreads();
+        // ---- L[r][J] below the leaf, one thread a row, by substitution
+        // against the rounded leaf: each entry is rounded before the next
+        // of its row uses it, so the rounded row solves its equations as
+        // closely as the column-by-column factor's rows do
+        if (tid < DN - J0 - DL) {
+            const int rl = DL + tid;                // its row of Cs
+            double l[DL];
+#pragma unroll
+            for (int c = 0; c < DL; ++c) {
+                double s0 = Cs[rl * CLD + c], s1 = 0.0;
+#pragma unroll
+                for (int q = 0; q < c; ++q) {
+                    const double lcq = Cs[c * CLD + q];
+                    if (q & 1) s1 = fma(-l[q], lcq, s1);
+                    else s0 = fma(-l[q], lcq, s0);
+                }
+                l[c] = rnd32((s0 + s1) / guard_pivot(Cs[c * CLD + c]));
+            }
+#pragma unroll
+            for (int c = 0; c < DL; ++c)
+                Ls[(J0 + rl) * DLD + J0 + c] = float(l[c]);
+        }
+        __syncthreads();
+    }
+
+    // ---- W below the diagonal blocks, by distance d = i - j ---------------
+    // 64 threads a 32 x 32 block, a 4 x 4 tile each; T parks in Cs
+    for (int d = 1; d < NLEAF; ++d) {
+        const int nblk = NLEAF - d;
+        for (int it = tid; it < nblk * 64; it += DTHREADS) {
+            const int j = it >> 6, i = j + d;
+            const int r0 = ((it >> 3) & 7) * 4, c0 = (it & 7) * 4;
+            // T = sum_{p=j}^{i-1} L_ip W_pj over kk = 32 j .. 32 i - 1
+            double acc[4][4] = {};
+            for (int kk = DL * j; kk < DL * i; ++kk) {
+                double lr[4], wc[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    lr[e] = double(Ls[(DL * i + r0 + e) * DLD + kk]);
+                    const int col = DL * j + c0 + e;
+                    wc[e] = (kk >= col) ? wt(Ls, kk, col) : 0.0;
+                }
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+#pragma unroll
+                    for (int y = 0; y < 4; ++y)
+                        acc[x][y] = fma(lr[x], wc[y], acc[x][y]);
+            }
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+                for (int y = 0; y < 4; ++y)
+                    Cs[(DL * j + r0 + x) * CLD + c0 + y] = acc[x][y];
+        }
+        __syncthreads();
+        for (int it = tid; it < nblk * 64; it += DTHREADS) {
+            const int j = it >> 6, i = j + d;
+            const int r0 = ((it >> 3) & 7) * 4, c0 = (it & 7) * 4;
+            // W_ij = -W_ii T, W_ii lower triangular
+            double acc[4][4] = {};
+            for (int q = 0; q < r0 + 4; ++q) {
+                double wr[4], tc[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    wr[e] = (q <= r0 + e) ? wt(Ls, DL * i + r0 + e, DL * i + q)
+                                          : 0.0;
+                    tc[e] = Cs[(DL * j + q) * CLD + c0 + e];
+                }
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+#pragma unroll
+                    for (int y = 0; y < 4; ++y)
+                        acc[x][y] = fma(wr[x], tc[y], acc[x][y]);
+            }
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+#pragma unroll
+                for (int y = 0; y < 4; ++y)
+                    Ls[(DL * j + c0 + y) * DLD + DL * i + r0 + x + 1] =
+                        float(-acc[x][y]);
         }
         __syncthreads();
     }
 
     // ---- L^T out: (r, c) = L[c][r] on and above the diagonal, else 0; or,
-    // with lower_out, L itself ------------------------------------------------
+    // with lower_out, L itself; then W ---------------------------------------
     float* LTb = LT + b * lt_bs;
     for (int e = tid; e < DN * DN; e += DTHREADS) {
         const int r = e / DN, c = e % DN;
         const int hi = lower_out ? r : c, lo = lower_out ? c : r;
-        LTb[size_t(r) * lt_rs + c] = (hi >= lo) ? float(Ls[hi * DLD + lo])
-                                                : 0.f;
+        LTb[size_t(r) * lt_rs + c] = (hi >= lo) ? Ls[hi * DLD + lo] : 0.f;
     }
-
-    // ---- W = L^-1 by forward substitution; DQ lanes own column c ------------
-    // The lanes of a warp walk the rows together from the warp's first
-    // column, entries above a column's own diagonal counting as 0.
-    const int c = i, c0 = (tid / 32) * (32 / DQ);
-    double* wc = Ls + c * DLD + 1;      // wc[r] = W[r][c], r >= c
-    for (int r = c0; r < DN; ++r) {
-        const double* lr = Ls + r * DLD;
-        double a = 0.0;
-        for (int p = c0 + t; p < r; p += DQ)
-            a = fma(-lr[p], (p >= c) ? wc[p] : 0.0, a);
-        a = quad_sum(a);
-        if (r >= c && t == 0)
-            wc[r] = rnd32((a + ((r == c) ? 1.0 : 0.0)) / guard_pivot(lr[r]));
-        __syncwarp();                   // wc[r] is read by the other lanes
-    }
-    __syncthreads();
     float* Wb = W + b * w_bs;
     for (int e = tid; e < DN * DN; e += DTHREADS) {
-        const int r = e / DN, cc = e % DN;
-        Wb[size_t(r) * DN + cc] =
-            (r >= cc) ? float(Ls[cc * DLD + 1 + r]) : 0.f;
+        const int r = e / DN, c = e % DN;
+        Wb[size_t(r) * DN + c] = (r >= c) ? Ls[c * DLD + r + 1] : 0.f;
     }
 }
 

@@ -249,8 +249,11 @@ def diag_factor_inv(CD: torch.Tensor, out_lt: torch.Tensor | None = None,
     may be ``CD`` itself).  With ``lower_out`` the first output is L, not
     its transpose.  A block that is not positive definite comes back
     with a non-positive or non-finite diagonal entry of ``L^T``; nothing
-    raises.  On the card: one block per instance, float64 dot products
-    rounded once on store."""
+    raises.  On the card: one block per instance, blocked over four leaves
+    of 32 columns (each factored and inverted by one warp, the products
+    between them on all threads); every dot product and update accumulated
+    in float64, each entry of L and W rounded to float32 once, and W the
+    inverse of the L that is stored."""
     if CD.ndim != 3:
         raise ValueError(f"CD must be (B, {NB}, {NB}), got {tuple(CD.shape)}")
     B = CD.shape[0]

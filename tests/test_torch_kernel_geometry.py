@@ -157,6 +157,26 @@ def test_assembly_smem_fits_one_block():
     assert "assemble_sym_f32_kernel<<<grid, THREADS, TOT_BYTES," in text
 
 
+def test_diag_factor_inv_smem_lets_two_blocks_share_an_sm():
+    """The diagonal kernel (row 5b): the tile as float32 with a padded row
+    and the block column's C as doubles, as the source computes it and as
+    its comment says; two blocks of 256 threads an SM (228 KB, 1 KB
+    reserved for each), so B = 256 runs in one wave on 132 SMs; the launch
+    asks for exactly that size."""
+    c = _constexprs("panel_common.cuh", "factor_panels.cu")
+    text = (CSRC / "factor_panels.cu").read_text()
+    assert (c["DN"], c["DL"], c["DTHREADS"]) == (128, 32, 256)
+    assert c["DIAG_SMEM"] == 128 * 129 * 4 + 128 * 33 * 8 == 99840
+    assert f"// {c['DIAG_SMEM']}" in text
+    assert 2 * (c["DIAG_SMEM"] + 1024) <= 228 * 1024 \
+        < 3 * (c["DIAG_SMEM"] + 1024)
+    asserts = [a for a in _static_asserts("factor_panels.cu")
+               if "DIAG_SMEM" in a]
+    assert len(asserts) == 1 and eval(asserts[0], {}, c)  # noqa: S307
+    assert "__launch_bounds__(DTHREADS, 2)" in text
+    assert "int(DIAG_SMEM)" in text and "DTHREADS, DIAG_SMEM," in text
+
+
 def test_tensor_core_sources_share_one_mma_header():
     """Both tensor-core kernels include the shared header and define none of
     its helpers again."""
