@@ -1,11 +1,12 @@
 // Tensor-core building blocks shared by the kernels that multiply on
 // Hopper's tensor cores with an exact bf16 split of a float32 operand: the
-// fused panel stage (fused_panel.cu) and the symmetric assembly
-// (assemble_sym.cu).
+// fused panel stage (fused_panel.cu), the symmetric assembly
+// (assemble_sym.cu) and the right-looking factor's panel products
+// (cholesky_right.cu).
 //
 // mma.sync m16n8k16 (bf16 in, float32 sums) fed by ldmatrix from shared
 // tiles, asynchronous 16-byte copies (cp.async) into a ring of stages, and
-// the two-level sum both kernels keep: every MMA starts from a fresh zero
+// the two-level sum these kernels keep: every MMA starts from a fresh zero
 // accumulator and its 16 products are added to a run with an IEEE add
 // (mma_add), the runs to a total (add_frag).  A tensor core aligns the
 // products of one MMA to the largest and truncates what falls below, always

@@ -756,8 +756,10 @@ def cholesky_batched(M: torch.Tensor):
     M: the diagonal tile's factor and inverse, ``T[i, k] = T[i, k] W_k^T``
     for the tiles below, ``T[i, j] -= T[i, k] T[j, k]^T`` for the tiles
     ``i >= j > k``: three launches on the card, every product device code
-    of this package.  Each trailing entry is rounded to float32 once per
-    panel."""
+    of this package, the TRSM and the update on the tensor cores over an
+    exact bf16 split of both float32 operands (six products, each MMA summed
+    alone), the diagonal of the update's diagonal tiles on the CUDA cores.
+    Each trailing entry is rounded to float32 once per panel."""
     B, m = _check_square("cholesky_batched", M)
     if not M.is_cuda:
         return cholesky_batched_plain(M)

@@ -177,8 +177,31 @@ def test_diag_factor_inv_smem_lets_two_blocks_share_an_sm():
     assert "int(DIAG_SMEM)" in text and "DTHREADS, DIAG_SMEM," in text
 
 
+def test_right_factor_smem_lets_two_blocks_share_an_sm():
+    """Row 9's tensor-core tile product: two raw stages of both 128 x 16
+    float32 operands, six split bf16 tiles with padded rows and the
+    diagonal's CUDA-core sums, as the source computes it and as its comment
+    says; two blocks of 256 threads an SM, as the launch bounds count on
+    (228 KB, 1 KB reserved for each); every static_assert holds; both
+    launches ask for exactly that size and share the header's helpers."""
+    c = _constexprs("panel_common.cuh", "cholesky_right.cu")
+    text = (CSRC / "cholesky_right.cu").read_text()
+    assert (c["RT"], c["RCK"], c["RSTAGES"], c["RBLOCKS"]) == (256, 16, 2, 2)
+    assert c["RIGHT_SMEM"] == (2 * 2 * 128 * 16 * 4 + 6 * 128 * 24 * 2
+                               + 128 * 4) == 70144
+    assert f"// {c['RIGHT_SMEM']}" in text
+    assert 2 * (c["RIGHT_SMEM"] + 1024) <= 228 * 1024
+    asserts = _static_asserts("cholesky_right.cu")
+    assert len(asserts) == 3
+    for cond in asserts:
+        assert eval(cond, {}, c), cond  # noqa: S307 - own source
+    assert text.count("__launch_bounds__(RT, RBLOCKS)") == 2
+    assert text.count("RT, RIGHT_SMEM,") == 2
+    assert '#include "mma_common.cuh"' in text and "mma_add(" in text
+
+
 def test_tensor_core_sources_share_one_mma_header():
-    """Both tensor-core kernels include the shared header and define none of
+    """The tensor-core kernels include the shared header and define none of
     its helpers again."""
     helpers = ("void cp16(", "void ldm_x4(", "void mma(", "void mma_add(",
                "void split2(", "void split8(", "void ring(", "typedef float Frag",
@@ -186,7 +209,7 @@ def test_tensor_core_sources_share_one_mma_header():
     header = (CSRC / "mma_common.cuh").read_text()
     for h in helpers:
         assert h in header, h
-    for source in ("fused_panel.cu", "assemble_sym.cu"):
+    for source in ("fused_panel.cu", "assemble_sym.cu", "cholesky_right.cu"):
         text = (CSRC / source).read_text()
         assert '#include "mma_common.cuh"' in text, source
         for h in helpers:
