@@ -119,6 +119,7 @@ TOL_TWO_SWEEPS = 5e-5
 TOL_API_BACKWARD = 3e-5
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS = 67e12                   # H100 SXM, float32 outside tensor cores
+F64_FLOPS = 34e12                   # H100 SXM, float64 outside tensor cores
 BF16_TC_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
 # An f32-faithful product on bf16 tensor cores takes several passes: an f32
 # operand against a bf16 one three (the exact split of the f32 side), two f32
@@ -347,26 +348,29 @@ def _calls(A, v, w, beta, alpha):
 
 
 def _bound(nbytes: float, flops: float, asm_flops: float = 0.0,
-           chol_flops: float = 0.0) -> dict:
+           chol_flops: float = 0.0, f64_flops: float = 0.0) -> dict:
     """The least time for the work: the larger of bytes over the memory rate
     and operations over the card's rate for their type.  ``flops`` are
     float32 operations at the CUDA-core rate; ``asm_flops`` and
     ``chol_flops`` are matrix products at the bf16 tensor-core rate,
-    ASM_PASSES and CHOL_PASSES times over."""
+    ASM_PASSES and CHOL_PASSES times over; ``f64_flops`` float64 operations
+    at the CUDA-core rate."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = (flops / F32_FLOPS + (ASM_PASSES * asm_flops
-                               + CHOL_PASSES * chol_flops) / BF16_TC_FLOPS) * 1e3
+    to = (flops / F32_FLOPS + f64_flops / F64_FLOPS
+          + (ASM_PASSES * asm_flops + CHOL_PASSES * chol_flops)
+          / BF16_TC_FLOPS) * 1e3
     return {"bound_ms": max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
 def _f32_cuda_core_ms(nbytes: float, flops: float, asm_flops: float = 0.0,
-                      chol_flops: float = 0.0) -> float:
+                      chol_flops: float = 0.0, f64_flops: float = 0.0) -> float:
     """The same work as ``_bound`` with every product on the CUDA cores in
     float32: the yardstick of the kernels before the tensor cores, printed
     apart from the ``kernels`` line (phase ``bounds``)."""
     return max(nbytes / HBM_BYTES_PER_S,
-               (flops + asm_flops + chol_flops) / F32_FLOPS) * 1e3
+               (flops + asm_flops + chol_flops) / F32_FLOPS
+               + f64_flops / F64_FLOPS) * 1e3
 
 
 def _matvec_work(B: int, itemsize: int) -> dict:
@@ -722,11 +726,10 @@ def _panel_work(B: int) -> dict:
                                 2 * B * chol),
         # the block lower triangle of M in, panels and W out
         "factor_lt_panels": (2 * panels + w_out, 0, 0, 2 * B * chol),
-        # tile in, L^T and W out; NB^3 / 6 FMAs for the factor and again for
-        # the inverse, a sequential chain in each block: latency, not these
-        # rates, is what limits it
-        "diag_factor_inv": (3 * 4 * B * NB * NB, 2 * B * 2 * NB ** 3 // 6,
-                            0, 0),
+        # tile in, L^T and W out; NB^3 / 3 float64 FMAs for the factor and
+        # again for the inverse
+        "diag_factor_inv": (3 * 4 * B * NB * NB, 0, 0, 0,
+                            2 * B * 2 * NB ** 3 // 3),
         "chol_solve_batched_panels": (factor_io + 2 * 4 * B * m,
                                       2 * 2 * (factor_io // 4), 0, 0),
         # the same function from a full L^T: the strict block triangle and W
@@ -904,7 +907,11 @@ def phase_panel_kernels(rows: dict) -> None:
 
     set_times("diag_factor_inv", lambda: pk.diag_factor_inv(CD),
               lambda: pk.diag_factor_inv_plain(CD),
-              library_ms=time_ms(diag_library, reps=5, warm=1))
+              library_ms=time_ms(diag_library, reps=5, warm=1),
+              # every call enqueued before the first runs: a launch takes
+              # the host about as long as the kernel takes the card
+              queued_ms=time_ms(lambda: pk.diag_factor_inv(CD),
+                                queued=True))
 
     g = torch.Generator(device=DEV).manual_seed(4)
     b = torch.randn(B_MAIN, M_ROWS, generator=g, device=DEV)
@@ -1005,6 +1012,55 @@ def _limit_checks(checks) -> str | None:
             continue
         return f"{name} took m={big} instead of refusing it"
     return None if counts() == before else f"a refused m={big} launched"
+
+
+def _diag_rel(got, ref) -> dict:
+    """Mean and RMS of (got - ref) / ref on the diagonals of (B', n, n)
+    tensors, ref float64: a sum whose terms all have one sign shows a biased
+    rounding as a mean away from zero."""
+    d = (torch.diagonal(got.double() - ref, dim1=-2, dim2=-1)
+         / torch.diagonal(ref, dim1=-2, dim2=-1))
+    return {"diag_mean_rel": float(d.mean()),
+            "diag_rms_rel": float((d ** 2).mean().sqrt())}
+
+
+def _start_tile_diagonals(A, d2, j, reg) -> dict:
+    """Row 5's start tiles, the first tile of every panel's C_k, against
+    float64 on the diagonal: the whole (J (A_k d2 A_k^T) J + reg - sum_j
+    P_j^T P_j, relative to it), the assembly alone (reg 0, zero prior
+    panels) and the subtraction alone (d2 = 0, which makes the assembly
+    exactly 0, reg 0; relative to the sum subtracted), with the P_j the
+    kernel's own panels."""
+    B, m, _ = A.shape
+    panels, _ = pk.factor_fused_panels(A, d2, j, reg)
+    A64, j64, x64 = A.double(), j.double(), A.double() * d2.double()[:, None]
+    zreg = torch.zeros_like(reg)
+    runs = {"whole": (pk._fused_panel_rows(A, d2, j, reg), panels),
+            "assembly": (pk._fused_panel_rows(A, d2, j, zreg),
+                         tuple(torch.zeros_like(p) for p in panels)),
+            "subtraction": (pk._fused_panel_rows(A, torch.zeros_like(d2), j,
+                                                 zreg), panels)}
+    out = {}
+    for name, (rows, prior) in runs.items():
+        got, ref = [], []
+        for k in range(0 if name != "subtraction" else 1, m // NB):
+            o = k * NB
+            C = torch.empty(B, NB, m - o, device=DEV)
+            rows(k, prior[:k], C)
+            S = 0.0
+            for i, p in enumerate(panels[:k]):
+                P = p[:, :, (k - i) * NB:(k - i + 1) * NB].double()
+                S = S + torch.matmul(P.mT, P)
+            R = -S if name == "subtraction" else (
+                torch.matmul(x64[:, o:o + NB], A64[:, o:o + NB].mT)
+                * j64[:, o:o + NB, None] * j64[:, None, o:o + NB])
+            if name == "whole":
+                R = R + torch.diag_embed(reg.double()[:, None].expand(B, NB))
+                R = R - S
+            got.append(C[:, :, :NB])
+            ref.append(R)
+        out[name] = _diag_rel(torch.cat(got), torch.cat(ref))
+    return out
 
 
 def phase_lt_kernels(rows: dict) -> None:
@@ -1126,6 +1182,9 @@ def phase_lt_kernels(rows: dict) -> None:
     wrong = _limit_checks(checks)
     if wrong:
         fail(phase, wrong)
+    # a tensor-core sum of one sign shows a bias on the diagonal: row 5's
+    # start tiles against f64 (row 9's update: probes/assembly_error.py)
+    diagonals = {"fused_start_tiles": _start_tile_diagonals(A, d2, j, reg)}
     del A, Ms64, Ms32, Ms32_64, L, Lp, LT, LTpl, LT7, panels7
     torch.cuda.empty_cache()
 
@@ -1152,10 +1211,28 @@ def phase_lt_kernels(rows: dict) -> None:
     # the same function in one library call, for both factors
     chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(Ms, check_errors=False),
                       reps=5, warm=1)
+    Lr, Wr = pk.cholesky_batched(Ms)
+    # its C entry points alone: launches that no count sees
+    trsm = pk._entry("cholesky_right", "ipx_right_trsm",
+                     [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
+    update = pk._entry("cholesky_right", "ipx_right_update",
+                       [pk._P, pk._I, pk._I, pk._I, pk._P])
+
+    def right_panels():
+        # the panel TRSMs and trailing updates alone, in place on a factor
+        # of their own, whose values they leave unusable
+        st = torch.cuda.current_stream().cuda_stream
+        for k in range(M_ROWS // NB - 1):
+            trsm(Lr.data_ptr(), Wr.data_ptr(), B_MAIN, M_ROWS, k, st)
+            update(Lr.data_ptr(), B_MAIN, M_ROWS, k, st)
+
     set_times("cholesky_batched", lambda: pk.cholesky_batched(Ms),
               lambda: pk.cholesky_batched_plain(Ms), library_ms=chol_ms,
               diag_launches_inside=diag_launches(
-                  lambda: pk.cholesky_batched(Ms)))
+                  lambda: pk.cholesky_batched(Ms)),
+              # row 9's own time: its 14 launches without the 8 diagonal ones
+              own_ms=time_ms(right_panels, reps=5, warm=1))
+    del Lr, Wr
     set_times("factor_lt_batched", lambda: pk.factor_lt_batched(Ms),
               lambda: pk.factor_lt_batched_plain(Ms), library_ms=chol_ms,
               diag_launches_inside=diag_launches(
@@ -1191,6 +1268,7 @@ def phase_lt_kernels(rows: dict) -> None:
     del Ms, L, LT, panels, W
     torch.cuda.empty_cache()
     emit(phase, ok=True, batch_check=B_CHECK, batch_timed=B_MAIN, m=M_ROWS,
+         diagonals=diagonals,
          tolerances=dict(factor_vs_f64=TOL_PANELS_F64,
                          factor_vs_plain=TOL_LT_PLAIN,
                          reconstruction=TOL_RECONSTRUCT,
@@ -1506,7 +1584,7 @@ def main() -> int:
     work = {**_matvec_work(B_MAIN, 2), **_panel_work(B_MAIN)}
     emit("bounds", batch=B_MAIN, f32_cuda_core_ms={
         name: _f32_cuda_core_ms(*w) for name, w in work.items()
-        if any(w[2:])})
+        if any(w[2:4])})
     print(json.dumps({"kernels": out}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(card, flush=True)

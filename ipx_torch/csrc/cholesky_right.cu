@@ -40,7 +40,7 @@
 // and columns 64 wn .. +64 of the tile.  Two blocks share an SM (70 KB of
 // shared memory and 128 registers a thread each, a few spilled), so one
 // block's split, barriers and epilogue overlap the other's MMAs.  Measured
-// on an H100 (probes/right_variants.py, PERF.md PR 6), this shape beats one
+// on an H100 (probes/right_variants.py, PERF.md row 9), this shape beats one
 // block an SM with 32-column chunks and three stages at 255 registers, whose
 // time moved by a quarter with changes that left its instruction counts
 // alone.

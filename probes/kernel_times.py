@@ -8,10 +8,14 @@ one JSON line: the card, the build seconds, and CUDA-event times at B=256,
 m=1024, n=2048 (bf16 A) of the eight panel launches of the fused factor, the
 whole fused factor, ``ata_apply``, ``a_matvec`` (plain and squared),
 ``at_matvec``, ``assemble_sym_batched``, ``factor_lt_panels`` /
-``factor_lt_batched`` on the assembled matrix, and the pair-solves
+``factor_lt_batched`` / ``cholesky_batched`` on the assembled matrix,
+``diag_factor_inv`` on its first diagonal tile, the 14 launches of
+``cholesky_batched``'s panel TRSM and trailing update alone (its own time,
+without the 8 diagonal launches), and the pair-solves
 ``chol_solve_batched_panels`` (at B=256 and on the first 16 instances) and
 ``chol_solve_batched_lt`` on the fused factor, and a hash of the fused
-factor's and the panel pair-solve's bits.  The pair-solves are timed
+factor's, the panel pair-solve's, ``diag_factor_inv``'s and
+``cholesky_batched``'s bits.  The pair-solves are timed
 queued behind a spinning kernel, so that at B=16 the time is the kernel's
 and not the host's time to launch it.  To compare a change with its parent
 in one call, export the parent (``git archive``) into a git-ignored
@@ -86,7 +90,30 @@ out["factor_lt_batched"] = time_ms(lambda: pk.factor_lt_batched(Ms), reps=5,
                                    warm=1)
 out["assemble_sym_batched"] = time_ms(lambda: pk.assemble_sym_batched(A, d2),
                                       reps=5, warm=1)
-del Ms
+CD = Ms[:, :NB, :NB].contiguous()
+out["diag_factor_inv"] = time_ms(lambda: pk.diag_factor_inv(CD), queued=True)
+out["diag_factor_inv_sha"] = sha(*pk.diag_factor_inv(CD))
+out["cholesky_batched"] = time_ms(lambda: pk.cholesky_batched(Ms), reps=5,
+                                  warm=1)
+L9, W9 = pk.cholesky_batched(Ms)
+out["cholesky_batched_sha"] = sha(L9, W9)
+trsm = pk._entry("cholesky_right", "ipx_right_trsm",
+                 [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
+update = pk._entry("cholesky_right", "ipx_right_update",
+                   [pk._P, pk._I, pk._I, pk._I, pk._P])
+
+
+def right_panels():
+    """cholesky_batched's TRSM and update launches alone, in place on a
+    factor of their own, whose values they leave unusable."""
+    st = torch.cuda.current_stream().cuda_stream
+    for k in range(m // NB - 1):
+        trsm(L9.data_ptr(), W9.data_ptr(), B, m, k, st)
+        update(L9.data_ptr(), B, m, k, st)
+
+
+out["cholesky_batched_own_x14"] = time_ms(right_panels, reps=5, warm=1)
+del Ms, CD, L9, W9
 
 
 def queued_ms(fn, reps=20):

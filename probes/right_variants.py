@@ -104,7 +104,7 @@ def main() -> int:
         sha = hashlib.sha256(T[:16].cpu().numpy().tobytes()).hexdigest()[:16]
 
         def panels(update_only=False):
-            # in place on the factor: the time does not depend on the values
+            # in place on the factor, whose values they leave unusable
             for k in range(M // NB - 1):
                 if not update_only:
                     so.ipx_right_trsm(T.data_ptr(), W.data_ptr(), B, M, k, st)
