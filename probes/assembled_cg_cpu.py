@@ -1,15 +1,17 @@
 """Iterations of ``cg_operator="assembled"`` in ipx and ipx_torch on the same
 instances, on the CPU, with the default operator as the control.
 
-    python probes/assembled_cg_cpu.py [m [n [B]]]      (default 256 512 16)
+    python probes/assembled_cg_cpu.py [m [n [B [seed0]]]]   (256 512 16 200)
 
 Each instance comes from ``ipx.problem.generate.random_feasible_lp`` (seeds
-200..), its A rounded to bf16 and b, c rebuilt so the constructed optimum
+seed0..), its A rounded to bf16 and b, c rebuilt so the constructed optimum
 is exact.  Both packages solve the batch in float32 under
 ``throughput(chol_backend="xla", a_storage="bfloat16",
-augmented_fallback=False, max_iter=64)`` with each operator; one JSON line
-per (package, operator): OPTIMAL count, median and per-lane iterations.
-The JAX side runs on the CPU.  Takes a few minutes at the default size.
+augmented_fallback=False, max_iter=64)`` with each operator, and the port
+once more with the assembled operator's product taken in float64
+(``f64_operator``: what float64 sums in that operator would give); one JSON
+line per run: OPTIMAL count, median and per-lane iterations.  The JAX side
+runs on the CPU.  Takes a few minutes at the default size.
 """
 import json
 import os
@@ -27,12 +29,13 @@ import torch  # noqa: E402
 
 import ipx  # noqa: E402
 import ipx_torch  # noqa: E402
+import ipx_torch.linsys.normal_eq as ne  # noqa: E402
 from ipx.problem.generate import random_feasible_lp  # noqa: E402
 from ipx.problem.lp import make_lp as jmake_lp  # noqa: E402
 from ipx_torch.problem.lp import make_lp as tmake_lp  # noqa: E402
 
 
-def instances(B: int, m: int, n: int, seed0: int = 200):
+def instances(B: int, m: int, n: int, seed0: int):
     out = []
     for i in range(B):
         g = random_feasible_lp(m, n, seed=seed0 + i)
@@ -52,22 +55,42 @@ def solve(package: str, insts, cg_operator: str):
         options=ipx_torch.SolverOptions.throughput(**kw), device="cpu")
 
 
+def mv_f64(a, x):
+    """``normal_eq.mv`` with the (B, m, m) operator's product in float64,
+    rounded once; every other product as before."""
+    if a.dtype == torch.float32 and a.shape[-2] == a.shape[-1]:
+        return torch.matmul(a.double(), x.double().unsqueeze(-1)).squeeze(
+            -1).float()
+    return MV(a, x)
+
+
+MV = ne.mv
+
+
 def main() -> int:
     args = [int(a) for a in sys.argv[1:]]
-    m, n, B = (args + [256, 512, 16][len(args):])[:3]
+    m, n, B, seed0 = (args + [256, 512, 16, 200][len(args):])[:4]
     torch.set_num_threads(4)
-    insts = instances(B, m, n)
-    for op in ("matrix_free", "assembled"):
-        for package in ("ipx", "ipx_torch"):
-            t0 = time.time()
+    insts = instances(B, m, n, seed0)
+    runs = [(op, package) for op in ("matrix_free", "assembled")
+            for package in ("ipx", "ipx_torch")]
+    for op, package in runs + [("assembled", "f64_operator")]:
+        t0 = time.time()
+        if package == "f64_operator":
+            saved, ne.mv = ne.mv, mv_f64
+            try:
+                sols = solve("ipx_torch", insts, op)
+            finally:
+                ne.mv = saved
+        else:
             sols = solve(package, insts, op)
-            its = [int(s.iterations) for s in sols]
-            print(json.dumps({
-                "package": package, "cg_operator": op, "m": m, "n": n,
-                "B": B, "seconds": round(time.time() - t0, 1),
-                "optimal": sum(bool(s.optimal) for s in sols),
-                "median_iterations": statistics.median(its),
-                "iterations": its}), flush=True)
+        its = [int(s.iterations) for s in sols]
+        print(json.dumps({
+            "package": package, "cg_operator": op, "m": m, "n": n, "B": B,
+            "seed0": seed0, "seconds": round(time.time() - t0, 1),
+            "optimal": sum(bool(s.optimal) for s in sols),
+            "median_iterations": statistics.median(its),
+            "iterations": its}), flush=True)
     return 0
 
 
