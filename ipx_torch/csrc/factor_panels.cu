@@ -59,22 +59,25 @@
 // current block column and the leaf's L stay float64 in shared memory; each
 // entry of L and W is rounded to float32 once, and what later steps read of
 // them is that float32 value, so W is the inverse of the L that is stored.
-// The substitutions keep the column-by-column factor's order within a row
-// (each entry rounded before the next uses it): a product with W_jj in its
-// place rounds the 32 entries of a row independently and, measured against
-// float64, came out up to 1.4x less accurate.  Only the lower triangle of
-// the input is read, from device memory when its block column comes up.  A
-// block that is not positive definite gets a non-positive or non-finite
-// diagonal entry, which the caller's `ok` test catches; nothing traps.
-// Bound on this card: about 2 NB^3 / 3 float64 FMAs an instance (the factor
-// and the inverse), some 0.02 ms at B = 256 on the CUDA cores, against 0.015
-// ms of bytes.  What the parent design lost (two sequential chains of 128
-// dependent dot products, one block an SM in two waves at B = 256) this one
-// shortens to 32-step chains (the leaves, the substitutions); the products
-// between them run on all 256 threads, and the tile is kept as float32 (L in
-// the lower triangle, W^T in the upper shifted by one column) so that 99,840
-// bytes of shared memory let two blocks share an SM and B = 256 runs in one
-// wave.
+// The substitutions keep the column-by-column factor's formula within a row
+// (each entry rounded before the next uses it, and scaled by its column's
+// unrounded pivot 1 / sqrt(d_c)): a product with W_jj in its place rounds the
+// 32 entries of a row independently and, measured against float64, came out
+// up to 2.3x less accurate, and a division by the rounded diagonal entry
+// 1.1x.  Only the lower triangle of the input is read, from device memory
+// when its block column comes up.  A block that is not positive definite
+// gets a non-positive or non-finite diagonal entry, which the caller's `ok`
+// test catches; nothing traps.
+// Bound on this card: bytes, 0.015 ms at B = 256 (the tile in, L and W out).
+// The operations are NB^3 / 3 float64 FMAs an instance (NB^3 / 6 the factor,
+// NB^3 / 6 the inverse), 0.005 ms at the float64 tensor-core rate and 0.011
+// on the CUDA cores.  What a column-by-column design loses (two sequential
+// chains of 128 dependent dot products, one block an SM in two waves at
+// B = 256) this one shortens to 32-step chains (the leaves, the
+// substitutions); the products between them run on all 256 threads, and the
+// tile is kept as float32 (L in the lower triangle, W^T in the upper shifted
+// by one column) so that 99,840 bytes of shared memory let two blocks share
+// an SM and B = 256 runs in one wave.
 //
 // Shapes: m a multiple of 128 (the caller pads the assembled route).
 
@@ -197,7 +200,9 @@ constexpr int DTHREADS = 256;
 constexpr int DLD = DN + 1;         // float row stride of the tile: a row and
                                     // a column both read without bank
                                     // conflicts, and room for W^T (below)
-constexpr int CLD = DL + 1;         // double row stride of C
+constexpr int CLD = DL + 1;         // double row stride of C; column DL of
+                                    // the leaf's rows holds its pivots
+                                    // 1 / sqrt(d_c), unrounded
 constexpr size_t DIAG_SMEM = size_t(DN) * DLD * sizeof(float)
     + size_t(DN) * CLD * sizeof(double);                 // 99840
 static_assert(2 * (DIAG_SMEM + 1024) <= 228 * 1024,
@@ -213,10 +218,10 @@ __device__ __forceinline__ double guard_pivot(double v) {
 __device__ __forceinline__ double rnd32(double v) { return double(float(v)); }
 
 // Leaf j, one warp: C_jj (Cs rows 0 .. 31, float64) -> L_jj, rounded to
-// float32, into the tile and into Cs (in place), then W_jj = L_jj^-1 in
-// float64, rounded, into the tile's W^T slots.  The factor runs down the
-// columns with lane i owning row i in registers; the inverse runs down the
-// rows with lane c owning column c.
+// float32, into the tile and into Cs (in place), the pivots 1 / sqrt(d_c)
+// into Cs's column DL, then W_jj = L_jj^-1 in float64, rounded, into the
+// tile's W^T slots.  The factor runs down the columns with lane i owning row
+// i in registers; the inverse runs down the rows with lane c owning column c.
 // Each dot product is split over two chains.
 __device__ __forceinline__ void leaf(float* Ls, double* Cs, int J0,
                                      int lane) {
@@ -237,10 +242,11 @@ __device__ __forceinline__ void leaf(float* Ls, double* Cs, int J0,
         const double dj = __shfl_sync(0xffffffffu, s, j);
         // row j's entry is d_j / sqrt(max(d_j, tiny)): not positive for a
         // block that is not positive definite
-        const double l = (lane >= j) ? rnd32(s * rsqrt(guard_pivot(dj)))
-                                     : 0.0;
+        const double piv = rsqrt(guard_pivot(dj));
+        const double l = (lane >= j) ? rnd32(s * piv) : 0.0;
         a[j] = l;
         Cs[lane * CLD + j] = l;
+        if (lane == j) Cs[j * CLD + DL] = piv;
         __syncwarp();
     }
 #pragma unroll
@@ -327,8 +333,8 @@ diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
         __syncthreads();
         // ---- L[r][J] below the leaf, one thread a row, by substitution
         // against the rounded leaf: each entry is rounded before the next
-        // of its row uses it, so the rounded row solves its equations as
-        // closely as the column-by-column factor's rows do
+        // of its row uses it, and is scaled by its column's unrounded pivot
+        // 1 / sqrt(d_c), so each entry is the column-by-column factor's
         if (tid < DN - J0 - DL) {
             const int rl = DL + tid;                // its row of Cs
             double l[DL];
@@ -341,7 +347,7 @@ diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
                     if (q & 1) s1 = fma(-l[q], lcq, s1);
                     else s0 = fma(-l[q], lcq, s0);
                 }
-                l[c] = rnd32((s0 + s1) / guard_pivot(Cs[c * CLD + c]));
+                l[c] = rnd32((s0 + s1) * Cs[c * CLD + DL]);
             }
 #pragma unroll
             for (int c = 0; c < DL; ++c)
