@@ -120,6 +120,7 @@ TOL_API_BACKWARD = 3e-5
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOPS = 67e12                   # H100 SXM, float32 outside tensor cores
 F64_FLOPS = 34e12                   # H100 SXM, float64 outside tensor cores
+F64_TC_FLOPS = 67e12                # H100 SXM, float64 tensor cores
 BF16_TC_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
 # An f32-faithful product on bf16 tensor cores takes several passes: an f32
 # operand against a bf16 one three (the exact split of the f32 side), two f32
@@ -354,9 +355,9 @@ def _bound(nbytes: float, flops: float, asm_flops: float = 0.0,
     float32 operations at the CUDA-core rate; ``asm_flops`` and
     ``chol_flops`` are matrix products at the bf16 tensor-core rate,
     ASM_PASSES and CHOL_PASSES times over; ``f64_flops`` float64 operations
-    at the CUDA-core rate."""
+    at the card's float64 peak, its tensor cores' rate."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = (flops / F32_FLOPS + f64_flops / F64_FLOPS
+    to = (flops / F32_FLOPS + f64_flops / F64_TC_FLOPS
           + (ASM_PASSES * asm_flops + CHOL_PASSES * chol_flops)
           / BF16_TC_FLOPS) * 1e3
     return {"bound_ms": max(tb, to),
@@ -365,9 +366,10 @@ def _bound(nbytes: float, flops: float, asm_flops: float = 0.0,
 
 def _f32_cuda_core_ms(nbytes: float, flops: float, asm_flops: float = 0.0,
                       chol_flops: float = 0.0, f64_flops: float = 0.0) -> float:
-    """The same work as ``_bound`` with every product on the CUDA cores in
-    float32: the yardstick of the kernels before the tensor cores, printed
-    apart from the ``kernels`` line (phase ``bounds``)."""
+    """The same work as ``_bound`` with every product on the CUDA cores (in
+    float32, the float64 work in float64): the yardstick of the kernels
+    before the tensor cores, printed apart from the ``kernels`` line (phase
+    ``bounds``)."""
     return max(nbytes / HBM_BYTES_PER_S,
                (flops + asm_flops + chol_flops) / F32_FLOPS
                + f64_flops / F64_FLOPS) * 1e3
@@ -726,10 +728,10 @@ def _panel_work(B: int) -> dict:
                                 2 * B * chol),
         # the block lower triangle of M in, panels and W out
         "factor_lt_panels": (2 * panels + w_out, 0, 0, 2 * B * chol),
-        # tile in, L^T and W out; NB^3 / 3 float64 FMAs for the factor and
-        # again for the inverse
+        # tile in, L^T and W out; NB^3 / 6 float64 FMAs for the factor and
+        # as many for the inverse
         "diag_factor_inv": (3 * 4 * B * NB * NB, 0, 0, 0,
-                            2 * B * 2 * NB ** 3 // 3),
+                            2 * B * NB ** 3 // 3),
         "chol_solve_batched_panels": (factor_io + 2 * 4 * B * m,
                                       2 * 2 * (factor_io // 4), 0, 0),
         # the same function from a full L^T: the strict block triangle and W
@@ -1017,21 +1019,28 @@ def _limit_checks(checks) -> str | None:
 def _diag_rel(got, ref) -> dict:
     """Mean and RMS of (got - ref) / ref on the diagonals of (B', n, n)
     tensors, ref float64: a sum whose terms all have one sign shows a biased
-    rounding as a mean away from zero."""
-    d = (torch.diagonal(got.double() - ref, dim1=-2, dim2=-1)
+    rounding as a mean away from zero.  Beside them the RMS of the
+    off-diagonal error relative to each matrix's largest entry of ref."""
+    E = got.double() - ref
+    d = (torch.diagonal(E, dim1=-2, dim2=-1)
          / torch.diagonal(ref, dim1=-2, dim2=-1))
+    off = (E - torch.diag_embed(torch.diagonal(E, dim1=-2, dim2=-1))
+           ) / ref.abs().amax(dim=(-2, -1), keepdim=True)
     return {"diag_mean_rel": float(d.mean()),
-            "diag_rms_rel": float((d ** 2).mean().sqrt())}
+            "diag_rms_rel": float((d ** 2).mean().sqrt()),
+            "offdiag_rms_rel": float((off ** 2).mean().sqrt())}
 
 
 def _start_tile_diagonals(A, d2, j, reg) -> dict:
     """Row 5's start tiles, the first tile of every panel's C_k, against
-    float64 on the diagonal: the whole (J (A_k d2 A_k^T) J + reg - sum_j
+    float64 (``_diag_rel``): the whole (J (A_k d2 A_k^T) J + reg - sum_j
     P_j^T P_j, relative to it), the assembly alone (reg 0, zero prior
     panels) and the subtraction alone (d2 = 0, which makes the assembly
     exactly 0, reg 0; relative to the sum subtracted), with the P_j the
-    kernel's own panels."""
+    kernel's own panels.  ``probes/assembly_error.py`` runs it on any
+    checkout."""
     B, m, _ = A.shape
+    dev = A.device
     panels, _ = pk.factor_fused_panels(A, d2, j, reg)
     A64, j64, x64 = A.double(), j.double(), A.double() * d2.double()[:, None]
     zreg = torch.zeros_like(reg)
@@ -1045,7 +1054,7 @@ def _start_tile_diagonals(A, d2, j, reg) -> dict:
         got, ref = [], []
         for k in range(0 if name != "subtraction" else 1, m // NB):
             o = k * NB
-            C = torch.empty(B, NB, m - o, device=DEV)
+            C = torch.empty(B, NB, m - o, device=dev)
             rows(k, prior[:k], C)
             S = 0.0
             for i, p in enumerate(panels[:k]):
@@ -1061,6 +1070,21 @@ def _start_tile_diagonals(A, d2, j, reg) -> dict:
             ref.append(R)
         out[name] = _diag_rel(torch.cat(got), torch.cat(ref))
     return out
+
+
+def _right_own_ms(Ms) -> float:
+    """Device time of ``cholesky_batched``'s panel TRSMs and trailing updates
+    of Ms without its diagonal launches: each timed call runs them in place
+    on a fresh copy of Ms with the factor's own W (they read no diagonal
+    tile), so they see the values of a real factor."""
+    _, W = pk.cholesky_batched(Ms)
+    T = torch.empty_like(Ms)
+
+    def panels():
+        for k in range(Ms.shape[1] // NB - 1):
+            pk._right_panel(T, W, k)
+
+    return time_ms(panels, reps=5, warm=1, setup=lambda: T.copy_(Ms))
 
 
 def phase_lt_kernels(rows: dict) -> None:
@@ -1211,28 +1235,12 @@ def phase_lt_kernels(rows: dict) -> None:
     # the same function in one library call, for both factors
     chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(Ms, check_errors=False),
                       reps=5, warm=1)
-    Lr, Wr = pk.cholesky_batched(Ms)
-    # its C entry points alone: launches that no count sees
-    trsm = pk._entry("cholesky_right", "ipx_right_trsm",
-                     [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
-    update = pk._entry("cholesky_right", "ipx_right_update",
-                       [pk._P, pk._I, pk._I, pk._I, pk._P])
-
-    def right_panels():
-        # the panel TRSMs and trailing updates alone, in place on a factor
-        # of their own, whose values they leave unusable
-        st = torch.cuda.current_stream().cuda_stream
-        for k in range(M_ROWS // NB - 1):
-            trsm(Lr.data_ptr(), Wr.data_ptr(), B_MAIN, M_ROWS, k, st)
-            update(Lr.data_ptr(), B_MAIN, M_ROWS, k, st)
-
     set_times("cholesky_batched", lambda: pk.cholesky_batched(Ms),
               lambda: pk.cholesky_batched_plain(Ms), library_ms=chol_ms,
               diag_launches_inside=diag_launches(
                   lambda: pk.cholesky_batched(Ms)),
               # row 9's own time: its 14 launches without the 8 diagonal ones
-              own_ms=time_ms(right_panels, reps=5, warm=1))
-    del Lr, Wr
+              own_ms=_right_own_ms(Ms))
     set_times("factor_lt_batched", lambda: pk.factor_lt_batched(Ms),
               lambda: pk.factor_lt_batched_plain(Ms), library_ms=chol_ms,
               diag_launches_inside=diag_launches(

@@ -17,13 +17,29 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warm: int = 2, queued: bool = False) -> float:
+def time_ms(fn, reps: int = 10, warm: int = 2, queued: bool = False,
+            setup=None) -> float:
     """Mean device time of ``fn()`` in ms over ``reps`` calls after ``warm``
     warm-up calls, between two CUDA events on the current stream.  With
     ``queued`` the device first spins for about 25 ms, so the calls are all
     enqueued before the first runs: the time is then the kernels' back to
     back, not the host's time to launch them (which is what a kernel of a
-    few tens of microseconds would otherwise show)."""
+    few tens of microseconds would otherwise show).  With ``setup`` each
+    call is preceded by ``setup()`` (for ``fn`` that works in place, a fresh
+    copy of its input), outside the timed spans: a pair of events a call."""
+    if setup is not None:
+        spans = []
+        for i in range(warm + reps):
+            setup()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            if i >= warm:
+                spans.append((t0, t1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / reps
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()

@@ -766,24 +766,39 @@ def cholesky_batched(M: torch.Tensor):
     nb = m // NB
     T = M.clone()
     W = torch.empty(B, nb, NB, NB, dtype=torch.float32, device=M.device)
-    trsm = _entry("cholesky_right", "ipx_right_trsm",
-                  [_P, _P, _I, _I, _I, _P])
-    update = _entry("cholesky_right", "ipx_right_update",
-                    [_P, _I, _I, _I, _P])
     with torch.cuda.device(M.device):
-        st = _stream(M)
         for k in range(nb):
             o = k * NB
             tile = T[:, o:o + NB, o:o + NB]
             diag_factor_inv(tile, tile, W[:, k], lower_out=True)
             if k < nb - 1:
-                _launched("cholesky_batched",
-                          trsm(T.data_ptr(), W.data_ptr(), B, m, k, st),
-                          f"B={B}, m={m}, k={k} (panel TRSM)")
-                _launched("cholesky_batched",
-                          update(T.data_ptr(), B, m, k, st),
-                          f"B={B}, m={m}, k={k} (trailing update)")
+                _right_panel(T, W, k)
     return T, W
+
+
+# argument types of csrc/cholesky_right.cu's two C entry points
+RIGHT_ENTRY_ARGS = {"ipx_right_trsm": [_P, _P, _I, _I, _I, _P],
+                    "ipx_right_update": [_P, _I, _I, _I, _P]}
+
+
+def _right_panel(T: torch.Tensor, W: torch.Tensor, k: int,
+                 entries=None) -> None:
+    """Panel k of :func:`cholesky_batched` after its diagonal tile, in place
+    on T (B, m, m) float32 on the card with W_k in W (B, m / NB, NB, NB):
+    the TRSM ``T[i, k] = T[i, k] W_k^T`` of the tiles below it, then the
+    trailing update.  Two launches, each counted; one that fails raises.
+    ``entries`` are the two C entry points of another build of the source
+    (argument types ``RIGHT_ENTRY_ARGS``), by default this package's."""
+    B, m = T.shape[0], T.shape[1]
+    trsm, update = entries or (
+        _entry("cholesky_right", name, args)
+        for name, args in RIGHT_ENTRY_ARGS.items())
+    st = _stream(T)
+    _launched("cholesky_batched",
+              trsm(T.data_ptr(), W.data_ptr(), B, m, k, st),
+              f"B={B}, m={m}, k={k} (panel TRSM)")
+    _launched("cholesky_batched", update(T.data_ptr(), B, m, k, st),
+              f"B={B}, m={m}, k={k} (trailing update)")
 
 
 def cholesky(M: torch.Tensor) -> torch.Tensor:

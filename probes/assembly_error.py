@@ -22,7 +22,8 @@ each of:
   panels; ``subtraction``, the kernel run with d2 = 0 (the assembly is then
   exactly 0) and reg 0, relative to the sum it subtracts.  The mean and RMS
   of the relative error on the diagonal, and the RMS of the off-diagonal
-  error relative to the largest entry of the tile;
+  error relative to the largest entry of the tile (``chip_smoke.py``'s
+  ``_start_tile_diagonals``, of this tree, over the checkout's kernels);
 - ``right_update``: the trailing update of ``cholesky_batched``'s first
   panel (the diagonal factor, the panel TRSM and the update of the C entry
   points) on the scaled regularised matrix of the same batches, against
@@ -43,9 +44,12 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from ipx_torch.devinfo import nvidia_smi_line  # noqa: E402
 from ipx_torch.kernels import _build, cholesky as pk  # noqa: E402
 from ipx_torch.kernels import fused as fk  # noqa: E402
+
+from checkout import chip_smoke, devinfo, right_panel  # noqa: E402
+
+SMOKE = chip_smoke()
 
 SEEDS = (1, 2, 3)
 B, M, N = 8, 1024, 2048
@@ -85,46 +89,8 @@ def assembly(stats, A, d2) -> None:
 
 
 def fused_start_tiles(stats, A, d2, j, reg) -> None:
-    panels, _ = pk.factor_fused_panels(A, d2, j, reg)
-    zero_reg = torch.zeros_like(reg)
-    zeros = tuple(torch.zeros_like(p) for p in panels)
-    A64, j64 = A.double(), j.double()
-    x64 = A64 * d2.double().unsqueeze(1)
-    variants = {
-        "whole": (pk._fused_panel_rows(A, d2, j, reg), panels, True, True),
-        "assembly": (pk._fused_panel_rows(A, d2, j, zero_reg), zeros, True,
-                     False),
-        "subtraction": (pk._fused_panel_rows(A, torch.zeros_like(d2), j,
-                                             zero_reg), panels, False, True),
-    }
-    for name, (rows, prior, asm, sub) in variants.items():
-        got, ref = [], []
-        for k in range(M // NB):
-            o, w = k * NB, M - k * NB
-            C = torch.empty(B, NB, w, device="cuda")
-            rows(k, prior[:k], C)
-            R = torch.zeros(B, NB, NB, dtype=torch.float64, device="cuda")
-            if asm:
-                R += (torch.matmul(x64[:, o:o + NB], A64[:, o:o + NB].mT)
-                      * j64[:, o:o + NB].unsqueeze(2)
-                      * j64[:, o:o + NB].unsqueeze(1))
-            S = torch.zeros_like(R)
-            for jj, P in enumerate(panels[:k]):
-                lo = (k - jj) * NB
-                Pk = P[:, :, lo:lo + NB].double()
-                S += torch.matmul(Pk.mT, Pk)
-            if name == "whole":
-                R += torch.diag_embed(reg.double().unsqueeze(-1).expand(B, NB))
-            if sub:
-                R -= S
-            if name == "subtraction" and k == 0:
-                continue                    # nothing subtracted
-            got.append(C[:, :, :NB].double())
-            ref.append(R)
-        R = torch.cat(ref)
-        scale = R.abs().amax(dim=(1, 2), keepdim=True)
-        _acc(stats, "fused_start_tiles/" + name,
-             _diag_stats(torch.cat(got) - R, R, scale))
+    for name, v in SMOKE._start_tile_diagonals(A, d2, j, reg).items():
+        _acc(stats, "fused_start_tiles/" + name, v)
 
 
 def right_update(stats, A, d2, j, reg) -> None:
@@ -139,15 +105,7 @@ def right_update(stats, A, d2, j, reg) -> None:
     W = torch.empty(B, M // NB, NB, NB, device="cuda")
     tile = T[:, :NB, :NB]
     pk.diag_factor_inv(tile, tile, W[:, 0], lower_out=True)
-    stream = torch.cuda.current_stream().cuda_stream
-    trsm = pk._entry("cholesky_right", "ipx_right_trsm",
-                     [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
-    update = pk._entry("cholesky_right", "ipx_right_update",
-                       [pk._P, pk._I, pk._I, pk._I, pk._P])
-    for fn, args in ((trsm, (T.data_ptr(), W.data_ptr(), B, M, 0, stream)),
-                     (update, (T.data_ptr(), B, M, 0, stream))):
-        if fn(*args) != 0:
-            raise RuntimeError("launch failed")
+    right_panel(pk)(T, W, 0)
     torch.cuda.synchronize()
     P = T[:, NB:, :NB].double()
     S = torch.matmul(P, P.mT)
@@ -159,7 +117,8 @@ def right_update(stats, A, d2, j, reg) -> None:
 
 def main() -> int:
     _build.build_all()
-    print(json.dumps({"card": nvidia_smi_line(), "root": ROOT}), flush=True)
+    print(json.dumps({"card": devinfo.nvidia_smi_line(), "root": ROOT}),
+          flush=True)
     stats: dict = {}
     for seed in SEEDS:
         g = torch.Generator(device="cuda").manual_seed(seed)

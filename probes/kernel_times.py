@@ -11,15 +11,18 @@ whole fused factor, ``ata_apply``, ``a_matvec`` (plain and squared),
 ``factor_lt_batched`` / ``cholesky_batched`` on the assembled matrix,
 ``diag_factor_inv`` on its first diagonal tile, the 14 launches of
 ``cholesky_batched``'s panel TRSM and trailing update alone (its own time,
-without the 8 diagonal launches), and the pair-solves
+without the 8 diagonal launches, each call on a fresh copy of the matrix
+with the factor's own W), and the pair-solves
 ``chol_solve_batched_panels`` (at B=256 and on the first 16 instances) and
 ``chol_solve_batched_lt`` on the fused factor, and a hash of the fused
 factor's, the panel pair-solve's, ``diag_factor_inv``'s and
 ``cholesky_batched``'s bits.  The pair-solves are timed
 queued behind a spinning kernel, so that at B=16 the time is the kernel's
-and not the host's time to launch it.  To compare a change with its parent
-in one call, export the parent (``git archive``) into a git-ignored
-directory and run parent, change, change, parent.  Needs a CUDA device.
+and not the host's time to launch it.  The timer is this tree's
+(``probes/checkout.py``), whichever checkout is measured.  To compare a
+change with its parent in one call, export the parent (``git archive``) into
+a git-ignored directory and run parent, change, change, parent.  Needs a
+CUDA device.
 """
 import hashlib
 import json
@@ -33,8 +36,11 @@ sys.path.insert(0, root)
 
 import torch  # noqa: E402
 
-from ipx_torch.devinfo import nvidia_smi_line, time_ms  # noqa: E402
 from ipx_torch.kernels import _build, cholesky as pk, fused as fk  # noqa: E402
+
+from checkout import devinfo, right_panel  # noqa: E402
+
+nvidia_smi_line, time_ms = devinfo.nvidia_smi_line, devinfo.time_ms
 
 t0 = time.perf_counter()
 _build.build_all()
@@ -97,39 +103,24 @@ out["cholesky_batched"] = time_ms(lambda: pk.cholesky_batched(Ms), reps=5,
                                   warm=1)
 L9, W9 = pk.cholesky_batched(Ms)
 out["cholesky_batched_sha"] = sha(L9, W9)
-trsm = pk._entry("cholesky_right", "ipx_right_trsm",
-                 [pk._P, pk._P, pk._I, pk._I, pk._I, pk._P])
-update = pk._entry("cholesky_right", "ipx_right_update",
-                   [pk._P, pk._I, pk._I, pk._I, pk._P])
+del L9
+panel, T9 = right_panel(pk), torch.empty_like(Ms)
 
 
 def right_panels():
-    """cholesky_batched's TRSM and update launches alone, in place on a
-    factor of their own, whose values they leave unusable."""
-    st = torch.cuda.current_stream().cuda_stream
+    """cholesky_batched's TRSM and update launches alone, in place on T9
+    (the diagonal tiles, which they do not read, are left as they were)."""
     for k in range(m // NB - 1):
-        trsm(L9.data_ptr(), W9.data_ptr(), B, m, k, st)
-        update(L9.data_ptr(), B, m, k, st)
+        panel(T9, W9, k)
 
 
-out["cholesky_batched_own_x14"] = time_ms(right_panels, reps=5, warm=1)
-del Ms, CD, L9, W9
+out["cholesky_batched_own_x14"] = time_ms(right_panels, reps=5, warm=1,
+                                          setup=lambda: T9.copy_(Ms))
+del Ms, CD, T9, W9
 
 
-def queued_ms(fn, reps=20):
-    """Device time of fn() with every call enqueued before the first runs:
-    the device spins for about 25 ms behind the warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+def queued_ms(fn):
+    return time_ms(fn, reps=20, warm=1, queued=True)
 
 
 rhs = torch.randn(B, m, **kw)

@@ -9,8 +9,9 @@ builds it with the shape in the source.  This probe writes copies of the
 source with other shapes under ``build/right_variants/``, builds each with
 the package's nvcc flags (printing ptxas's registers and spills), and times
 each one's 14 launches of ``ipx_right_trsm`` and ``ipx_right_update`` (the
-factor at B=256, m=1024 less its 8 diagonal launches) in place on a factor of
-the scaled regularised matrix of n=2048 bf16 A, and its 7 updates alone.
+factor at B=256, m=1024 less its 8 diagonal launches), each call on a fresh
+copy of the scaled regularised matrix of n=2048 bf16 A with its factor's W,
+and its 7 updates alone.
 One JSON line a shape, with a hash of the bits of a whole factor made with
 it (the diagonal tiles' CUDA-core sums follow RCK, so shapes with another
 RCK give other bits); ``kept`` marks the shape in the source, which runs
@@ -38,8 +39,8 @@ B, M, N, NB = 256, 1024, 2048, pk.NB
 
 
 def _build_shape(src: str, shape: tuple, out: str):
-    """A copy of the source with the given shape, built; returns (library,
-    ptxas's registers and spill stores)."""
+    """A copy of the source with the given shape, built; returns (its two
+    C entry points, ptxas's registers and spill stores)."""
     for name, val in zip(NAMES, shape):
         src, count = re.subn(rf"^constexpr int {name} = \d+;",
                              f"constexpr int {name} = {val};", src,
@@ -57,11 +58,12 @@ def _build_shape(src: str, shape: tuple, out: str):
         raise RuntimeError(res.stdout + res.stderr)
     text = res.stdout + res.stderr
     so = ctypes.CDLL(lib)
-    so.ipx_right_trsm.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    so.ipx_right_trsm.argtypes += [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    so.ipx_right_update.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
-    so.ipx_right_update.argtypes += [ctypes.c_void_p]
-    return so, {"registers": re.findall(r"Used (\d+) registers", text),
+    entries = []
+    for name, args in pk.RIGHT_ENTRY_ARGS.items():
+        fn = getattr(so, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+        entries.append(fn)
+    return entries, {"registers": re.findall(r"Used (\d+) registers", text),
                 "spill_stores": re.findall(r"(\d+) bytes spill stores", text)}
 
 
@@ -87,34 +89,38 @@ def main() -> int:
     Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
     Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
     del A
-    st = torch.cuda.current_stream().cuda_stream
-
     for shape in shapes:
-        so, info = _build_shape(src, shape, out)
+        entries, info = _build_shape(src, shape, out)
         T = Ms.clone()
         W = torch.empty(B, M // NB, NB, NB, device="cuda")
         for k in range(M // NB):
             tile = T[:, k * NB:(k + 1) * NB, k * NB:(k + 1) * NB]
             pk.diag_factor_inv(tile, tile, W[:, k], lower_out=True)
             if k < M // NB - 1:
-                assert so.ipx_right_trsm(T.data_ptr(), W.data_ptr(), B, M, k,
-                                         st) == 0
-                assert so.ipx_right_update(T.data_ptr(), B, M, k, st) == 0
+                pk._right_panel(T, W, k, entries)
         torch.cuda.synchronize()
         sha = hashlib.sha256(T[:16].cpu().numpy().tobytes()).hexdigest()[:16]
+        update = entries[1]
+
+        def fresh():
+            T.copy_(Ms)
 
         def panels(update_only=False):
-            # in place on the factor, whose values they leave unusable
+            # in place on a fresh copy of Ms with the factor's own W (no
+            # diagonal tile is read): with the TRSMs, a real factor's values
+            st = torch.cuda.current_stream().cuda_stream
             for k in range(M // NB - 1):
                 if not update_only:
-                    so.ipx_right_trsm(T.data_ptr(), W.data_ptr(), B, M, k, st)
-                so.ipx_right_update(T.data_ptr(), B, M, k, st)
+                    pk._right_panel(T, W, k, entries)
+                elif update(T.data_ptr(), B, M, k, st) != 0:
+                    raise RuntimeError(f"update failed at k={k}")
 
         print(json.dumps({
             "shape": dict(zip(NAMES, shape)), "kept": shape == kept, **info,
             "factor_sha": sha,
-            "own_x14_ms": time_ms(panels, reps=5, warm=1),
-            "update_x7_ms": time_ms(lambda: panels(True), reps=5, warm=1)}),
+            "own_x14_ms": time_ms(panels, reps=5, warm=1, setup=fresh),
+            "update_x7_ms": time_ms(lambda: panels(True), reps=5, warm=1,
+                                    setup=fresh)}),
             flush=True)
     return 0
 

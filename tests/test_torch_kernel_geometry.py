@@ -200,6 +200,24 @@ def test_right_factor_smem_lets_two_blocks_share_an_sm():
     assert '#include "mma_common.cuh"' in text and "mma_add(" in text
 
 
+def test_right_entry_args_match_the_source():
+    """The argument types ``cholesky_batched`` (and the probes that launch
+    another build of the source) give row 9's two C entry points, against
+    their declarations: a pointer for each pointer, a C int for each int."""
+    import ctypes
+
+    from ipx_torch.kernels import cholesky as tpk
+
+    text = (CSRC / "cholesky_right.cu").read_text()
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
+    for name, args in tpk.RIGHT_ENTRY_ARGS.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert found, name
+        params = [p.strip() for p in found.group(1).split(",")]
+        want = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
+        assert args == want, (name, params)
+
+
 def test_tensor_core_sources_share_one_mma_header():
     """The tensor-core kernels include the shared header and define none of
     its helpers again."""
