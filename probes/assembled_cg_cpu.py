@@ -1,7 +1,8 @@
 """Iterations of ``cg_operator="assembled"`` in ipx and ipx_torch on the same
 instances, on the CPU, with the default operator as the control.
 
-    python probes/assembled_cg_cpu.py [m [n [B [seed0]]]]   (256 512 16 200)
+    python probes/assembled_cg_cpu.py [m [n [B [seed0 [routes]]]]]
+                                      (256 512 16 200 xla)
 
 Each instance comes from ``ipx.problem.generate.random_feasible_lp`` (seeds
 seed0..), its A rounded to bf16 and b, c rebuilt so the constructed optimum
@@ -9,9 +10,13 @@ is exact.  Both packages solve the batch in float32 under
 ``throughput(chol_backend="xla", a_storage="bfloat16",
 augmented_fallback=False, max_iter=64)`` with each operator, and the port
 once more with the assembled operator's product taken in float64
-(``f64_operator``: what float64 sums in that operator would give); one JSON
-line per run: OPTIMAL count, median and per-lane iterations.  The JAX side
-runs on the CPU.  Takes a few minutes at the default size.
+(``f64_operator``: what float64 sums in that operator would give).
+``routes`` (comma-separated) adds the port's runs on other factor routes,
+both operators each (``pallas``: the right-looking factor's plain version on
+the CPU); the JAX side runs ``xla`` only, since its Pallas kernels would run
+in interpret mode.  One JSON line per run: OPTIMAL count, median and
+per-lane iterations.  The JAX side runs on the CPU.  Takes a few minutes at
+the default size, about half an hour at m=1024, n=2048, B=16.
 """
 import json
 import os
@@ -44,8 +49,8 @@ def instances(B: int, m: int, n: int, seed0: int):
     return out
 
 
-def solve(package: str, insts, cg_operator: str):
-    kw = dict(chol_backend="xla", a_storage="bfloat16",
+def solve(package: str, insts, cg_operator: str, route: str = "xla"):
+    kw = dict(chol_backend=route, a_storage="bfloat16",
               augmented_fallback=False, max_iter=64, cg_operator=cg_operator)
     if package == "ipx":
         return ipx.solve_batch([jmake_lp(c, A, b) for c, A, b in insts],
@@ -68,13 +73,19 @@ MV = ne.mv
 
 
 def main() -> int:
-    args = [int(a) for a in sys.argv[1:]]
-    m, n, B, seed0 = (args + [256, 512, 16, 200][len(args):])[:4]
+    args = sys.argv[1:]
+    m, n, B, seed0 = [int(a) for a in (args[:4] + ["256", "512", "16",
+                                                    "200"][len(args):])][:4]
+    routes = [r for r in (args[4] if len(args) > 4 else "xla").split(",")
+              if r != "xla"]
     torch.set_num_threads(4)
     insts = instances(B, m, n, seed0)
-    runs = [(op, package) for op in ("matrix_free", "assembled")
+    runs = [(op, package, "xla") for op in ("matrix_free", "assembled")
             for package in ("ipx", "ipx_torch")]
-    for op, package in runs + [("assembled", "f64_operator")]:
+    runs += [("assembled", "f64_operator", "xla")]
+    runs += [(op, "ipx_torch", r) for r in routes
+             for op in ("matrix_free", "assembled")]
+    for op, package, route in runs:
         t0 = time.time()
         if package == "f64_operator":
             saved, ne.mv = ne.mv, mv_f64
@@ -83,10 +94,11 @@ def main() -> int:
             finally:
                 ne.mv = saved
         else:
-            sols = solve(package, insts, op)
+            sols = solve(package, insts, op, route)
         its = [int(s.iterations) for s in sols]
         print(json.dumps({
-            "package": package, "cg_operator": op, "m": m, "n": n, "B": B,
+            "package": package, "cg_operator": op, "chol_backend": route,
+            "m": m, "n": n, "B": B,
             "seed0": seed0, "seconds": round(time.time() - t0, 1),
             "optimal": sum(bool(s.optimal) for s in sols),
             "median_iterations": statistics.median(its),

@@ -33,7 +33,11 @@ gap:
                       for a like-for-like pair
 
 ``--routes-only`` stops after the first five (the factor routes side by
-side).  ``--alone K`` then solves the first K lanes that the kernel route
+side).  ``--assembled`` then runs ``cg_operator="assembled"`` on ``xla``,
+``pallas_left`` and ``pallas``, and on ``pallas`` once more with that
+operator's product in float64 (``pallas/assembled_f64``), and stops: with
+the first five as the control, whether the operator's extra iterations
+belong to one route.  ``--alone K`` then solves the first K lanes that the kernel route
 left short of OPTIMAL in the batch and its first K OPTIMAL lanes each as a
 batch of one on both routes, prints one line per lane with its four ends
 (batch and alone, either route) and a summary: how often a lane alone ends
@@ -87,6 +91,7 @@ def report(tag: str, sols) -> None:
     q = len(gaps) // 4
     print(json.dumps({
         "variant": tag, "lanes": len(sols), "status": status,
+        "median_iterations": float(np.median([s.iterations for s in sols])),
         "optimal_per_16": [sum(s.optimal for s in sols[i:i + 16])
                            for i in range(0, len(sols), 16)],
         "gap_quartiles": [gaps[q], gaps[2 * q], gaps[min(3 * q, len(gaps) - 1)]],
@@ -147,6 +152,9 @@ def main() -> int:
     ap.add_argument("--routes-only", action="store_true",
                     help="only baseline, pallas_left, pallas_left/plain, "
                          "pallas, blocked_left")
+    ap.add_argument("--assembled", action="store_true",
+                    help="after the routes, cg_operator='assembled' on three "
+                         "of them, then stop")
     ap.add_argument("--alone", type=int, default=0, metavar="K",
                     help="solve K stalled and K OPTIMAL lanes as batches of "
                          "one on both routes (0: skip)")
@@ -182,6 +190,26 @@ def main() -> int:
         pk.factor_fused_panels, pk.chol_solve_batched_panels = saved
     for backend in ("pallas", "blocked_left"):
         report(backend, run(opts.replace(chol_backend=backend)))
+    if args.assembled:
+        for backend in ("xla", "pallas_left", "pallas"):
+            report(f"{backend}/assembled", run(opts.replace(
+                chol_backend=backend, cg_operator="assembled")))
+        mv = ne.mv
+
+        def mv_f64(a, x):
+            # the (B, m, m) operator's product in float64, rounded once
+            if a.dtype == torch.float32 and a.shape[-2] == a.shape[-1]:
+                return torch.matmul(a.double(), x.double().unsqueeze(-1)
+                                    ).squeeze(-1).float()
+            return mv(a, x)
+
+        ne.mv = mv_f64
+        try:
+            report("pallas/assembled_f64", run(opts.replace(
+                chol_backend="pallas", cg_operator="assembled")))
+        finally:
+            ne.mv = mv
+        return 0
     if args.routes_only:
         return 0
 

@@ -174,11 +174,13 @@ def test_stack_lps_rejects_mixed_shapes_and_empty():
 
 
 def test_assembled_cg_operator_iterations_match_ipx():
-    """cg_operator="assembled" is the reference's behaviour: on the same
-    seeded instances both packages end every lane OPTIMAL and need the same
-    median iterations to within one, with the default (matrix-free)
-    operator as the control.  (probes/assembled_cg_cpu.py compares them on
-    larger batches.)"""
+    """cg_operator="assembled" follows the reference: on the same seeded
+    instances both packages end every lane OPTIMAL under each operator and
+    need the same median iterations to within one, and under "assembled"
+    the same iterations lane by lane to within one.  (Whether the operator
+    costs iterations shows only at larger m, where it does so in both:
+    probes/assembled_cg_cpu.py on the CPU, probes/norescue_gpu.py
+    --assembled on the card.)"""
     insts = _bf16_instances(8, 96, 192, 500)
     medians = {}
     for op in ("matrix_free", "assembled"):
@@ -195,7 +197,10 @@ def test_assembled_cg_operator_iterations_match_ipx():
             assert _rel(a.objective, obj) <= 1e-5
         medians[op] = (float(np.median([s.iterations for s in sj])),
                        float(np.median([s.iterations for s in st])))
+        if op == "assembled":
+            # the operator under test: lane by lane
+            for a, b_ in zip(st, sj):
+                assert abs(a.iterations - b_.iterations) <= 1, (
+                    [s.iterations for s in st], [s.iterations for s in sj])
     for op, (mj, mt) in medians.items():
         assert abs(mj - mt) <= 1.0, (op, medians)
-    assert abs(medians["assembled"][1] - medians["matrix_free"][1]) <= 1.0, \
-        medians
