@@ -16,7 +16,9 @@ factor, panel pair-solve, one-stream matvecs), the same batch under
 full-L^T pair-solve), the same options on the library Cholesky
 (``chol_backend="xla"``) and on ``"blocked_left"``, ``"blocked"``,
 ``"hybrid"``, ``"panels"`` and ``cg_operator="assembled"`` at B=64, two
-batches whose m = 1000 is off the 128 grid (padded routes), the kernel
+batches whose m = 1000 is off the 128 grid (padded routes),
+``throughput()`` as defined at B=64 (A stored float32: row 4's float32
+kernel and the accumulation of an assembled matrix), the kernel
 module's own factor-then-solve paths at B=256, an f64 oracle solve on the
 card, twelve lanes solved alone, and the fixed-iteration rate of three factor
 routes.
@@ -64,7 +66,8 @@ TOL_PLAIN = 1e-5    # kernel vs plain version (one f32 matmul), same scale:
 # Panels against the f64 Cholesky factor of the f64 scaled regularised matrix,
 # relative to the factor's largest entry: the forward error of an f32 factor,
 # condition x eps [5.3e-5 fused on the tensor cores (7.7e-5 on the CUDA
-# cores before), 6.8e-5 from the assembled matrix; the plain versions 2.3e-4
+# cores before), 2.4e-5 from the assembled matrix on the tensor cores (6.8e-5
+# on the CUDA cores before); the plain versions 2.3e-4
 # and 6.4e-5]
 TOL_PANELS_F64 = 5e-4
 # kernel panels against the plain version's: two f32 factors of one
@@ -93,9 +96,10 @@ TOL_DIAG_INVERSE_ILL = 3e-5
 TOL_DIAG_FACTOR = 2e-6
 # The full-matrix factors (same inputs, B = 8) share the panel factors'
 # limits above against the f64 factor [cholesky_batched 4.6e-5,
-# factor_lt_batched 5.8e-5; the plain versions 6.6e-5, 6.4e-5], on
-# ||L L^T - Ms|| / ||Ms|| [7.3e-7, 8.3e-7] and on ||W L - I|| [2.4e-7]; against
-# their plain versions [6.4e-5, 7.7e-5] they have a limit of their own
+# factor_lt_batched 1.9e-5 (5.8e-5 before the tensor cores); the plain
+# versions 6.6e-5, 6.4e-5], on ||L L^T - Ms|| / ||Ms|| [7.3e-7, 3.3e-7] and on
+# ||W L - I|| [2.4e-7]; against their plain versions [6.4e-5, 6.2e-5] they
+# have a limit of their own
 # (TOL_LT_PLAIN).  Their solves share the panel pair-solve's limits: the
 # pair-solve from a full L^T against an f64 solve with the same factor [3.2e-4; plain 1.8e-3], backward
 # error [3.7e-7]; two one-sweep solves [3.2e-4; plain 2.9e-3], [3.8e-7]; the
@@ -103,16 +107,16 @@ TOL_DIAG_FACTOR = 2e-6
 # error against the f32 matrix [2.2e-7, 2.1e-7].
 # factor_lt_batched against factor_lt_panels on the same matrix: panel 0's
 # diagonal tile and W_0 bit for bit, the rest to rounding (another product
-# behind the panel TRSM), relative to the factor's largest entry [4.6e-5]
+# behind the panel TRSM), relative to the factor's largest entry [2.7e-5]
 TOL_LT_VS_PANELS = 4e-4
 # cholesky_batched and factor_lt_batched against their plain versions,
-# relative to the factor's largest entry [6.4e-5, 7.7e-5]
+# relative to the factor's largest entry [6.4e-5, 6.2e-5]
 TOL_LT_PLAIN = 6e-4
 # the pair-solve from L^T against two one-sweep solves from L, same factor,
 # relative to the solution's largest entry [5.9e-6]
 TOL_TWO_SWEEPS = 5e-5
 # kernel_api at B = 256: backward error of the two factor-then-solve paths
-# against the f32 matrix they factored [3.5e-6, 2.8e-6].  Their solutions
+# against the f32 matrix they factored [8.9e-7, 1.5e-6].  Their solutions
 # against an f64 factor and solve of it are printed and held to nothing: the
 # forward error is condition x eps on these mid-solve matrices [1.5e-2,
 # 1.0e-2 of the largest entry] and says little about the kernels
@@ -185,13 +189,13 @@ KERNELS = {
                         "ipx/kernels/cholesky.py:192"),
     "chol_solve_batched_panels": ("ipx_torch/csrc/solve_panels.cu",
                                   "ipx/kernels/cholesky.py:1219"),
-    "factor_lt_panels": ("ipx_torch/csrc/factor_panels.cu",
+    "factor_lt_panels": ("ipx_torch/csrc/accum_panel.cu",
                          "ipx/kernels/cholesky.py:1093"),
     "chol_solve_batched_lt": ("ipx_torch/csrc/solve_panels.cu",
                               "ipx/kernels/cholesky.py:640"),
     "cholesky_batched": ("ipx_torch/csrc/cholesky_right.cu",
                          "ipx/kernels/cholesky.py:285"),
-    "factor_lt_batched": ("ipx_torch/csrc/factor_panels.cu",
+    "factor_lt_batched": ("ipx_torch/csrc/accum_panel.cu",
                           "ipx/kernels/cholesky.py:900"),
     "solve_triangular_batched": ("ipx_torch/csrc/solve_panels.cu",
                                  "ipx/kernels/cholesky.py:469"),
@@ -210,6 +214,8 @@ PATH_KERNELS = {
     "xla": _ASSEMBLED,
     "padded": _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
                             "chol_solve_batched_panels"),
+    "throughput_f32": _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
+                                    "chol_solve_batched_panels"),
     "blocked_left": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
     "blocked": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
     "hybrid": _ASSEMBLED + ("chol_solve_batched_lt",),
@@ -244,6 +250,14 @@ def slice_options(**kw):
     ``chol_backend="pallas_left"``."""
     return ipx_torch.SolverOptions.throughput(
         a_storage="bfloat16", augmented_fallback=False, max_iter=64, **kw)
+
+
+def f32_options():
+    """``throughput()`` with its own ``a_storage="float32"``: an f32 A is
+    assembled (row 4's float32 kernel) and factored from the assembled
+    matrix (row 7), not by the fused panel stage."""
+    return ipx_torch.SolverOptions.throughput(augmented_fallback=False,
+                                              max_iter=64)
 
 
 class LibraryFactorCalls:
@@ -557,6 +571,18 @@ def phase_kernels() -> dict:
     rows["at_matvec"]["library_ms"] = time_ms(lambda: torch.bmm(v3, Af))
     rows["assemble_sym_batched"]["library_ms"] = time_ms(
         lambda: torch.bmm(Wf, Af.mT), reps=3, warm=1)
+    # row 4's float32-A kernel (throughput() as defined, the padded and
+    # assembled routes) on the same values: two f32 operands, so its bound
+    # counts the products at the six-pass rate
+    nbytes, _, asm = _matvec_work(B_MAIN, 4)["assemble_sym_batched"]
+    rows["assemble_sym_batched"]["f32_a"] = {
+        "ms": time_ms(lambda: pk.assemble_sym_batched(Af, alpha), reps=3,
+                      warm=1),
+        "plain_ms": time_ms(lambda: pk.assemble_sym_batched_plain(Af, alpha),
+                            reps=3, warm=1),
+        "library_ms": rows["assemble_sym_batched"]["library_ms"],
+        **_bound(nbytes, 0, chol_flops=asm),
+        "f32_cuda_core_ms": _f32_cuda_core_ms(nbytes, asm)}
     del A, Af, Wf
     torch.cuda.empty_cache()
     emit("kernels", ok=True, batch_check=B_CHECK, batch_timed=B_MAIN,
@@ -747,6 +773,25 @@ def _panel_work(B: int) -> dict:
     }
 
 
+def _lt_own_work(B: int) -> dict:
+    """Work of the left-looking factors' own launches at (B, M_ROWS), as
+    ``_panel_work``: ``accumulate``, the m / NB accumulation launches (rows 7
+    and 10: per panel k, the k prior panels' suffixes P_j[:, (k - j) NB:] and
+    Ms's tile row read, C_k written; k (nb - k) tile products, six passes),
+    and ``row_panels``, row 10's m / NB row-panel launches (W and the
+    suffixes of C_k read, the row panels outside the diagonal tiles written,
+    zeros included; nb - 1 - k tile products a panel)."""
+    nb = M_ROWS // NB
+    tile = 4 * NB * NB
+    acc_bytes = B * tile * sum(k * (nb - k) + 2 * (nb - k) for k in range(nb))
+    acc_flops = B * 2 * NB ** 3 * sum(k * (nb - k) for k in range(nb))
+    rows_bytes = B * tile * (nb + sum(nb - 1 - k for k in range(nb))
+                             + nb * (nb - 1))
+    rows_flops = B * 2 * NB ** 3 * sum(nb - 1 - k for k in range(nb))
+    return {"accumulate": (acc_bytes, 0, 0, acc_flops),
+            "row_panels": (rows_bytes, 0, 0, rows_flops)}
+
+
 def _panel_bounds(B: int) -> dict:
     """name -> bound fields (``_bound``) of the panel kernels' rows."""
     return {name: _bound(*w) for name, w in _panel_work(B).items()}
@@ -890,13 +935,29 @@ def phase_panel_kernels(rows: dict) -> None:
     Ms = pk.assemble_sym_batched(A, d2)
     Ms.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
     Ms.diagonal(dim1=1, dim2=2).add_(reg.unsqueeze(-1))
+    p7, _ = pk.factor_lt_panels(Ms)
+    scratch = torch.empty(B_MAIN * NB * M_ROWS, device=DEV)
+
+    def lt_stages():
+        # the m / NB accumulation launches alone, on the factor's own prior
+        # panels
+        stage = pk._lt_panel_rows(Ms)
+        for k in range(nb):
+            w = M_ROWS - k * NB
+            stage(k, p7[:k], scratch[:B_MAIN * NB * w].view(B_MAIN, NB, w))
+
+    own = _lt_own_work(B_MAIN)["accumulate"]
     set_times("factor_lt_panels",
               lambda: pk.factor_lt_panels(Ms),
               lambda: pk.factor_lt_panels_plain(Ms),
               # the same function in one library call
               library_ms=time_ms(lambda: torch.linalg.cholesky_ex(
                   Ms, check_errors=False), reps=5, warm=1),
-              trsm_bmm_ms=trsm_ms)
+              trsm_bmm_ms=trsm_ms,
+              own_ms=time_ms(lt_stages, reps=5, warm=1),
+              own_bound=_bound(*own),
+              own_f32_cuda_core_ms=_f32_cuda_core_ms(*own))
+    del p7, scratch
 
     CD = Ms[:, :NB, :NB].contiguous()
     eye = torch.eye(NB, device=DEV).expand(B_MAIN, NB, NB)
@@ -1072,6 +1133,42 @@ def _start_tile_diagonals(A, d2, j, reg) -> dict:
     return out
 
 
+def _tile_rel(got, ref) -> dict:
+    """Mean and RMS of (got - ref) over whole (B', n, n) tiles, relative to
+    each tile's largest entry of ref (float64)."""
+    E = (got.double() - ref) / ref.abs().amax(dim=(-2, -1), keepdim=True)
+    return {"tile_mean_rel": float(E.mean()),
+            "tile_rms_rel": float((E ** 2).mean().sqrt())}
+
+
+def _lt_start_tiles(Ms, panels, rows) -> dict:
+    """Row 7's start tiles, the first tile of every C_k with k >= 1, from
+    ``rows(k, prior, C)`` (``kernels.cholesky._lt_panel_rows(Ms)`` or
+    another build's launches) on the prior panels ``panels`` of a factor of
+    Ms, against float64: ``whole``, C_k against Ms's tile less sum_j
+    P_j^T P_j, relative to that value, and ``subtraction``, C_k - Ms against
+    minus the sum, relative to the sum subtracted (``_diag_rel``, and the
+    whole tile's mean and RMS, ``_tile_rel``).  ``probes/assembly_error.py``
+    runs it on any checkout."""
+    B, m, _ = Ms.shape
+    got, start, S = [], [], []
+    for k in range(1, m // NB):
+        o = k * NB
+        C = torch.empty(B, NB, m - o, device=Ms.device)
+        rows(k, panels[:k], C)
+        s = 0.0
+        for i, p in enumerate(panels[:k]):
+            P = p[:, :, (k - i) * NB:(k - i + 1) * NB].double()
+            s = s + torch.matmul(P.mT, P)
+        got.append(C[:, :, :NB].double())
+        start.append(Ms[:, o:o + NB, o:o + NB].double())
+        S.append(s)
+    got, start, S = torch.cat(got), torch.cat(start), torch.cat(S)
+    return {"whole": {**_diag_rel(got, start - S), **_tile_rel(got, start - S)},
+            "subtraction": {**_diag_rel(got - start, -S),
+                            **_tile_rel(got - start, -S)}}
+
+
 def _right_own_ms(Ms) -> float:
     """Device time of ``cholesky_batched``'s panel TRSMs and trailing updates
     of Ms without its diagonal launches: each timed call runs them in place
@@ -1085,6 +1182,38 @@ def _right_own_ms(Ms) -> float:
             pk._right_panel(T, W, k)
 
     return time_ms(panels, reps=5, warm=1, setup=lambda: T.copy_(Ms))
+
+
+def _lt_own_ms(Ms) -> dict:
+    """``factor_lt_batched``'s own launches on Ms, timed apart: its m / NB
+    accumulation launches on the factor's own L^T, and its m / NB row-panel
+    launches (each k's C_k kept from a first pass) into a copy of that L^T,
+    each beside its floor (``_lt_own_work``)."""
+    nb, B = M_ROWS // NB, Ms.shape[0]
+    LT, W = pk.factor_lt_batched(Ms)
+    Cs = [torch.empty(B, NB, M_ROWS - k * NB, device=DEV) for k in range(nb)]
+    for k, C in enumerate(Cs):
+        pk._lt_accumulate(Ms, LT, C, k)
+    LT2 = LT.clone()
+
+    def accumulate():
+        for k, C in enumerate(Cs):
+            pk._lt_accumulate(Ms, LT, C, k)
+
+    def row_panels():
+        for k, C in enumerate(Cs):
+            pk._lt_row_panel(W, C, LT2, k)
+
+    work = _lt_own_work(B)
+    out = {"accumulate_own_ms": time_ms(accumulate, reps=5, warm=1),
+           "accumulate_own_bound": _bound(*work["accumulate"]),
+           "row_panels_own_ms": time_ms(row_panels, reps=5, warm=1),
+           "row_panels_own_bound": _bound(*work["row_panels"])}
+    torch.cuda.synchronize()
+    if not torch.equal(LT2, LT):
+        fail("lt_kernels", "factor_lt_batched's row panels differ when "
+             "launched again on the same C_k")
+    return out
 
 
 def phase_lt_kernels(rows: dict) -> None:
@@ -1127,6 +1256,24 @@ def phase_lt_kernels(rows: dict) -> None:
             or not torch.equal(W10[:, 0], W7[:, 0]) or vs7 > TOL_LT_VS_PANELS:
         fail(phase, f"factor_lt_batched against factor_lt_panels: first tile "
              f"not bitwise, or rest off by {vs7:.3e}")
+    # rows 7 and 10 run one accumulation body over two address maps: from
+    # row 10's own prior rows, row 7's launches give every C_k bit for bit,
+    # and the diagonal kernel on it row 10's L_kk^T and W_k
+    p10, rows7 = pk.panels_of_lt(LT), pk._lt_panel_rows(Ms32)
+    for k in range(M_ROWS // NB):
+        o = k * NB
+        C7 = torch.empty(B_CHECK, NB, M_ROWS - o, device=DEV)
+        C10 = torch.empty_like(C7)
+        rows7(k, p10[:k], C7)
+        pk._lt_accumulate(Ms32, LT, C10, k)
+        L7, Wk = pk.diag_factor_inv(C7[:, :, :NB])
+        if not (torch.equal(C7, C10)
+                and torch.equal(L7, LT[:, o:o + NB, o:o + NB])
+                and torch.equal(Wk, W10[:, k])):
+            fail(phase, f"panel {k}: factor_lt_panels' accumulation on "
+                 "factor_lt_batched's prior rows differs from its own")
+    checks["factor_lt_batched"]["rows_7_10_bitwise"] = True
+    del p10, C7, C10
 
     # ---- the pair-solve from a full L^T -----------------------------------------
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -1206,9 +1353,12 @@ def phase_lt_kernels(rows: dict) -> None:
     wrong = _limit_checks(checks)
     if wrong:
         fail(phase, wrong)
-    # a tensor-core sum of one sign shows a bias on the diagonal: row 5's
-    # start tiles against f64 (row 9's update: probes/assembly_error.py)
-    diagonals = {"fused_start_tiles": _start_tile_diagonals(A, d2, j, reg)}
+    # a tensor-core sum of one sign shows a bias on the diagonal: rows 5's
+    # and 7's start tiles against f64 (row 9's update:
+    # probes/assembly_error.py)
+    diagonals = {"fused_start_tiles": _start_tile_diagonals(A, d2, j, reg),
+                 "lt_start_tiles": _lt_start_tiles(
+                     Ms32, panels7, pk._lt_panel_rows(Ms32))}
     del A, Ms64, Ms32, Ms32_64, L, Lp, LT, LTpl, LT7, panels7
     torch.cuda.empty_cache()
 
@@ -1247,7 +1397,8 @@ def phase_lt_kernels(rows: dict) -> None:
                   lambda: pk.factor_lt_batched(Ms)),
               # the panel-major factor of the same matrix, same run
               factor_lt_panels_ms=time_ms(lambda: pk.factor_lt_panels(Ms),
-                                          reps=5, warm=1))
+                                          reps=5, warm=1),
+              **_lt_own_ms(Ms))
     L, W = pk.cholesky_batched(Ms)
     LT = L.mT.contiguous()
     panels = pk.panels_of_lt(LT)
@@ -1569,6 +1720,9 @@ def main() -> int:
     # backends that keep a full L^T or emit panels from library products
     drive("xla", B_XLA, M_ROWS, slice_options(chol_backend="xla"))
     drive("padded", B_PADDED, M_PADDED, slice_options())
+    # throughput() as defined, A stored float32: row 4's float32 kernel and
+    # row 7's accumulation at full width
+    drive("throughput_f32", B_XLA, M_ROWS, f32_options())
     for backend in ("blocked_left", "blocked", "hybrid", "panels"):
         drive(backend, B_XLA, M_ROWS, slice_options(chol_backend=backend))
     drive("assembled", B_XLA, M_ROWS,

@@ -1,49 +1,17 @@
-// Panel kernels of the left-looking blocked Cholesky factor (NB = 128), which
-// emits the factor as suffix-only transposed row panels
+// The diagonal kernel of the blocked Cholesky factors (NB = 128): the
+// Cholesky factor of a 128 x 128 diagonal block and its inverse,
 //
-//   panels[k]  (B, NB, m - k NB):  rows k NB .. (k+1) NB of L^T from the
-//                                  diagonal on
-//   W          (B, m / NB, NB, NB): inverses of the diagonal blocks of L
-//
-// or, for factor_lt_batched, as a full upper-triangular LT (B, m, m) whose
-// rows k NB .. (k+1) NB are zeros, L_kk^T, W_k C_k[:, NB:].
-//
-// Per panel k the caller runs
-//
-//   C_k = (start tile row) - sum_{j<k} P_j[:, o-jNB : o-jNB+NB]^T P_j[:, o-jNB:]
-//         accum_panel below (fused_panel.cu for a bf16 A), o = k NB
 //   L_D^T, W_D = diag_factor_inv(C_k[:, :NB])
-//   panels[k] = [L_D^T | W_D C_k[:, NB:]]        a library product outside
 //
-// accum_panel replaces _accum_panel_kernel of ipx/kernels/cholesky.py (entry
-// factor_lt_panels): the start tile is read from an assembled, scaled,
-// regularised matrix Ms.  (The fused form, which assembles the start tile
-// from a bf16 A on the tensor cores, is fused_panel.cu.)
-// The full-L^T factor replaces _factor_lt_kernel (entry factor_lt_batched),
-// which keeps the diagonal chain and the panel TRSM inside its body: here
-// accum_panel reads the prior rows from LT itself (the same kernel body over
-// another address map, so its sums are those of factor_lt_panels),
-// diag_factor_inv writes L_kk^T into LT's diagonal tile, and lt_rows_kernel
-// writes the rest of the row panel: W_k C_k[:, NB:] right of the diagonal
-// tile as a hand-written tile product, zeros left of it.
+// between the panel launches of every W-carrying factor: the left-looking
+// ones (fused_panel.cu for a bf16 A, accum_panel.cu from an assembled
+// matrix; panels[k] = [L_D^T | W_D C_k[:, NB:]]) and the right-looking one
+// (cholesky_right.cu, with the untransposed output).
 // diag_factor_inv has no TPU kernel behind it: there the 128 x 128 diagonal
 // Cholesky and its inverse are an unrolled chain of XLA operations between
-// the kernel calls (_factor_block_twolevel); run operation by operation from
-// PyTorch that chain is some 1,800 tiny launches a panel, so here it is one
-// kernel.
-//
-// Bound on this card: operations.  The subtraction is NB^3 sum_k k (nb - k)
-// float32 FMAs an instance; against that stand the tile row of Ms and the
-// prior panels read once each.  The design is the register-tiled product of
-// panel_common.cuh: grid (column tile t = k..nb-1, instance), one block per
-// 128 x 128 tile of C_k, so late panels with few tiles and a batch of one
-// simply launch few blocks.  No TF32 anywhere.
-//
-// Summation.  The subtraction is summed in an accumulator of its own, each
-// prior panel's 128 terms in registers and the panels' sums in shared memory,
-// and the total is subtracted from the start tile once: up to (nb - 1) NB
-// terms chained onto the start value in float32 would lose the digits the
-// two-level assembly has just won.
+// the kernel calls (_factor_block_twolevel of ipx/kernels/cholesky.py); run
+// operation by operation from PyTorch that chain is some 1,800 tiny launches
+// a panel, so here it is one kernel.
 //
 // diag_factor_inv: one block of 256 threads per instance, blocked as the
 // reference's _factor_block_twolevel is, over four leaves of 32 columns
@@ -86,108 +54,6 @@
 #include <float.h>
 
 namespace {
-
-using namespace ipx_tile;
-
-// Prior: where the rows of the k prior panels lie (PanelRows or FullRows).
-template <typename Prior>
-__global__ void __launch_bounds__(THREADS)
-panel_kernel(const float* __restrict__ Ms, Prior prior, float* C, int m,
-             int k) {
-    __shared__ __align__(16) float Xs[BK][LDS];
-    __shared__ __align__(16) float Ys[BK][LDS];
-    extern __shared__ float tot[];                // parked sums, TOT_BYTES
-
-    const int t = k + blockIdx.x;                 // column tile of M
-    const size_t b = blockIdx.y;
-    const int o = k * TILE, w = m - o;
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    float* Cb = C + b * size_t(TILE) * w + size_t(t - k) * TILE;
-
-    int ri[8], cj[8];                             // local row, local column
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-        ri[e] = ty * 4 + tile_off(e);
-        cj[e] = tx * 4 + tile_off(e);
-    }
-
-    // ---- sum_{j<k} P_j[:, (k-j) NB + r]^T P_j[:, (t-j) NB + c] --------------
-    float acc[8][8];
-    zero_total(tot, tid);
-    for (int jj = 0; jj < k; ++jj) {
-        size_t wj;                                // row stride of panel jj
-        const float* P = prior.at(jj, b, m, wj);
-        zero_acc(acc);
-        for (int k0 = 0; k0 < TILE; k0 += BK) {
-            stage_pass<false, false>(P + (k - jj) * TILE, wj,
-                                     P + (t - jj) * TILE, wj, k0, Xs, Ys, tid);
-            __syncthreads();
-            mma_pass(Xs, Ys, tx, ty, acc);
-            __syncthreads();
-        }
-        flush_acc(acc, tot, tid);                 // one prior panel is done
-    }
-
-    // ---- C = start - total, the one subtraction -----------------------------
-    const float* Mrow = Ms + b * size_t(m) * m + size_t(o) * m
-                        + size_t(t) * TILE;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            Cb[size_t(ri[i]) * w + cj[j]] = __fsub_rn(
-                Mrow[size_t(ri[i]) * m + cj[j]],
-                tot[(i * 8 + j) * THREADS + tid]);
-}
-
-template <typename Prior>
-int launch_panel(const float* Ms, const Prior& prior, float* C, int B, int m,
-                 int k, cudaStream_t stream) {
-    auto kern = panel_kernel<Prior>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TOT_BYTES));
-    if (err != cudaSuccess) return int(err);
-    dim3 grid(m / TILE - k, B);
-    kern<<<grid, THREADS, TOT_BYTES, stream>>>(Ms, prior, C, m, k);
-    return int(cudaGetLastError());
-}
-
-// Rows k NB .. (k+1) NB of a full L^T apart from the diagonal tile: block
-// (t, b) writes tile t of the row panel, zeros for t < k and
-// W_k C[:, (t - k) NB ...] for t > k, with C (B, NB, m - k NB) the accumulated
-// panel.  The product is the panel TRSM as a product with the block inverse.
-__global__ void __launch_bounds__(THREADS)
-lt_rows_kernel(const float* __restrict__ W, const float* __restrict__ C,
-               float* __restrict__ LT, int m, int k) {
-    __shared__ __align__(16) float Xs[BK][LDS];
-    __shared__ __align__(16) float Ys[BK][LDS];
-    extern __shared__ float tot[];                // parked sums, TOT_BYTES
-
-    const int t = blockIdx.x;
-    if (t == k) return;                           // diag_factor_inv's tile
-    const size_t b = blockIdx.y;
-    const int o = k * TILE, w = m - o, nb = m / TILE;
-    const int tid = threadIdx.x;
-    const int tx = tid & 15, ty = tid >> 4;
-    float* out = LT + (b * size_t(m) + o) * m + size_t(t) * TILE;
-
-    float acc[8][8];
-    if (t < k) {
-        zero_acc(acc);
-    } else {
-        product128<true, false>(W + (b * nb + k) * size_t(TILE) * TILE, TILE,
-                                C + b * size_t(TILE) * w
-                                  + size_t(t - k) * TILE, w,
-                                Xs, Ys, tot, tid, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-            out[size_t(ty * 4 + tile_off(i)) * m + tx * 4 + tile_off(j)] =
-                acc[i][j];
-}
 
 // ---------------------------------------------------------------------------
 // diag_factor_inv
@@ -431,48 +297,6 @@ diag_factor_inv_kernel(const float* C, long long c_bs, int c_rs, float* LT,
 }
 
 }  // namespace
-
-// Panel k from an assembled, scaled, regularised Ms (B, m, m) f32.
-extern "C" int ipx_accum_panel(const float* Ms, const void* const* prior,
-                               float* C, int B, int m, int k, void* stream) {
-    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
-    if (k < 0 || k >= m / TILE) return -1;
-    PanelRows pp;
-    if (fill_panels(pp.panels, prior, k) != 0) return -1;
-    return launch_panel(Ms, pp, C, B, m, k,
-                        static_cast<cudaStream_t>(stream));
-}
-
-// Panel k from Ms, the k prior panels being rows 0 .. k NB of the full
-// LT (B, m, m) f32 (only their columns from k NB on are read).
-extern "C" int ipx_accum_panel_lt(const float* Ms, const float* LT, float* C,
-                                  int B, int m, int k, void* stream) {
-    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
-    if (k < 0 || k >= m / TILE) return -1;
-    if (reinterpret_cast<uintptr_t>(LT) % 16 != 0) return -1;
-    return launch_panel(Ms, FullRows{LT}, C, B, m, k,
-                        static_cast<cudaStream_t>(stream));
-}
-
-// Rows k NB .. (k+1) NB of LT (B, m, m) outside the diagonal tile, from
-// W (B, m / NB, NB, NB) and the accumulated panel C (B, NB, m - k NB):
-// zeros to the left, W_k C[:, NB:] to the right.
-extern "C" int ipx_lt_rows(const float* W, const float* C, float* LT, int B,
-                           int m, int k, void* stream) {
-    if (B < 1 || B > 65535 || m < TILE || m % TILE) return -1;
-    if (k < 0 || k >= m / TILE) return -1;
-    if ((reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(C)
-         | reinterpret_cast<uintptr_t>(LT)) % 16 != 0)
-        return -1;
-    cudaError_t err = cudaFuncSetAttribute(
-        lt_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(TOT_BYTES));
-    if (err != cudaSuccess) return int(err);
-    dim3 grid(m / TILE, B);
-    lt_rows_kernel<<<grid, THREADS, TOT_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(W, C, LT, m, k);
-    return int(cudaGetLastError());
-}
 
 // C: B tiles of 128 x 128 f32 (instance stride c_bs, row stride c_rs, in
 // floats; lower triangle read) -> LT (instance stride lt_bs, row stride

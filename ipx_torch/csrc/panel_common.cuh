@@ -1,16 +1,18 @@
-// Register-tiled 128 x 128 float32 tile products, shared by the normal-matrix
-// assembly of a float32 A (assemble_sym.cu), the panel kernels of the left-looking factors
-// (factor_panels.cu) and the right-looking factor (cholesky_right.cu).
+// What the panel kernels share: the tile edge, the largest m of the panel
+// route, where a factor's prior rows lie (PanelRows, FullRows), and the
+// register-tiled 128 x 128 float32 tile product of the normal-matrix assembly
+// of a float32 A (assemble_sym.cu).
 //
-// One block of 256 threads owns one 128 x 128 output tile.  Thread (ty, tx) of
-// the 16 x 16 arrangement holds an 8 x 8 block of sums: rows ty*4..+3 and
-// 64+ty*4..+3, columns likewise with tx.  The two 128 x 16 operand tiles of a
-// pass go through shared memory stored k-major, so the inner loop reads
-// float4s.  Sums are taken in two levels: a short run in registers, then the
-// runs added in a fixed order into a per-thread total parked in shared memory
-// (entry e of thread t at [e * THREADS + t], private to its thread, so no
-// barrier guards it).  One chain of thousands of float32 FMAs loses digits the
-// interior-point iteration needs (PERF.md, "Summation").
+// The product: one block of 256 threads owns one 128 x 128 output tile.
+// Thread (ty, tx) of the 16 x 16 arrangement holds an 8 x 8 block of sums:
+// rows ty*4..+3 and 64+ty*4..+3, columns likewise with tx.  The two 128 x 16
+// operand tiles of a pass go through shared memory stored k-major, so the
+// inner loop reads float4s.  Sums are taken in two levels: a short run in
+// registers, then the runs added in a fixed order into a per-thread total
+// parked in shared memory (entry e of thread t at [e * THREADS + t], private
+// to its thread, so no barrier guards it).  One chain of thousands of float32
+// FMAs loses digits the interior-point iteration needs (PERF.md,
+// "Summation").
 
 #pragma once
 
@@ -202,79 +204,6 @@ __device__ __forceinline__ void assembly_tile(
 #pragma unroll
         for (int j = 0; j < 8; ++j)
             acc[i][j] += tot[(i * 8 + j) * THREADS + tid];
-}
-
-// One BK-deep pass of an operand into shared memory, k-major, in two halves
-// so that a caller can have both operands' loads in flight before it stores.
-// The operand is a 128 x 128 block of a row-major array with row stride ld (a
-// multiple of 4 floats, 16-byte aligned).  TRANSPOSED = false: its rows are
-// the contraction index, S[k][i] = op[(k0 + k) ld + i].  TRANSPOSED = true:
-// its columns are, S[k][i] = op[i ld + k0 + k].
-template <bool TRANSPOSED>
-__device__ __forceinline__ void load_pass(const float* op, size_t ld, int k0,
-                                          int tid, float4& a, float4& c) {
-    const float* src = TRANSPOSED
-        ? op + size_t(tid >> 1) * ld + k0 + (tid & 1) * 8
-        : op + size_t(k0 + (tid >> 4)) * ld + (tid & 15) * 8;
-    a = *reinterpret_cast<const float4*>(src);
-    c = *reinterpret_cast<const float4*>(src + 4);
-}
-
-template <bool TRANSPOSED>
-__device__ __forceinline__ void store_pass(float (*S)[LDS], int tid,
-                                           const float4& a, const float4& c) {
-    if (TRANSPOSED) {
-        const int lr = tid >> 1, lk = (tid & 1) * 8;
-        S[lk][lr] = a.x; S[lk + 1][lr] = a.y;
-        S[lk + 2][lr] = a.z; S[lk + 3][lr] = a.w;
-        S[lk + 4][lr] = c.x; S[lk + 5][lr] = c.y;
-        S[lk + 6][lr] = c.z; S[lk + 7][lr] = c.w;
-    } else {
-        const int lk = tid >> 4, lc = (tid & 15) * 8;
-        *reinterpret_cast<float4*>(&S[lk][lc]) = a;
-        *reinterpret_cast<float4*>(&S[lk][lc + 4]) = c;
-    }
-}
-
-// Both operands of a pass: X(p, r) = x[r ldx + p] if XT else x[p ldx + r],
-// Y likewise, for p = k0 .. k0 + BK - 1.
-template <bool XT, bool YT>
-__device__ __forceinline__ void stage_pass(
-        const float* x, size_t ldx, const float* y, size_t ldy, int k0,
-        float (*Xs)[LDS], float (*Ys)[LDS], int tid) {
-    float4 x0, x1, y0, y1;
-    load_pass<XT>(x, ldx, k0, tid, x0, x1);
-    load_pass<YT>(y, ldy, k0, tid, y0, y1);
-    store_pass<XT>(Xs, tid, x0, x1);
-    store_pass<YT>(Ys, tid, y0, y1);
-}
-
-// One 128 x 128 tile of a product over a contraction of 128:
-//   acc[i][j] = sum_p X(p, r_i) Y(p, c_j),
-// X and Y as stage_pass reads them: XT, YT = true, true is X Y^T of two
-// row-major blocks, true, false is X Y, false, false is X^T Y.  Summed in
-// KC-term chunks in registers, the chunk sums in `tot` (TOT_BYTES of shared
-// memory).  All threads of the block must call it; it ends after a barrier,
-// so an operand may be overwritten afterwards.
-template <bool XT, bool YT>
-__device__ __forceinline__ void product128(
-        const float* x, size_t ldx, const float* y, size_t ldy,
-        float (*Xs)[LDS], float (*Ys)[LDS], float* tot, int tid,
-        float (&acc)[8][8]) {
-    const int tx = tid & 15, ty = tid >> 4;
-    zero_acc(acc);
-    zero_total(tot, tid);
-    for (int k0 = 0; k0 < TILE; k0 += BK) {
-        stage_pass<XT, YT>(x, ldx, y, ldy, k0, Xs, Ys, tid);
-        __syncthreads();
-        mma_pass(Xs, Ys, tx, ty, acc);
-        if ((k0 + BK) % KC == 0) flush_acc(acc, tot, tid);
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = tot[(i * 8 + j) * THREADS + tid];
 }
 
 }  // namespace ipx_tile

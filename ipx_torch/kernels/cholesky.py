@@ -19,15 +19,18 @@ rows ``k NB .. (k+1) NB`` of ``L^T`` from the diagonal on, and ``W`` is
 the panel kernel (Jacobi scale and reg included), so the normal matrix is
 never written; its products run on the tensor cores with an exact 3-way bf16
 split of the f32 row operand (``csrc/fused_panel.cu``).  ``factor_lt_panels``
-reads the start tiles from an assembled matrix (``csrc/factor_panels.cu``).
+reads the start tiles from an assembled matrix; its accumulation runs on the
+tensor cores with an exact split of both f32 operands, warp-specialised
+(``csrc/accum_panel.cu``).
 ``W_D @ C_k[:, :, NB:]`` is a library product, as it is outside the kernels
 in ``ipx``.  ``chol_solve_batched_panels`` is
 the pair-solve ``L L^T x = b`` in one launch (``csrc/solve_panels.cu``).
 
 The factors that keep a full (B, m, m) matrix: ``factor_lt_batched`` is the
 same left-looking factor written into an upper-triangular ``LT = L^T`` (the
-prior rows are read from LT itself and the panel TRSM is a hand-written tile
-product, ``csrc/factor_panels.cu``); ``cholesky_batched`` is right-looking in
+prior rows are read from LT itself by the same accumulation, and the panel
+TRSM is a hand-written tensor-core product, ``csrc/accum_panel.cu``);
+``cholesky_batched`` is right-looking in
 a copy of M and returns the lower-triangular L (``csrc/cholesky_right.cu``).
 ``chol_solve_batched_lt`` is the pair-solve from a full ``LT``: the kernel of
 ``chol_solve_batched_panels`` over another address map, so the two give the
@@ -440,6 +443,12 @@ def _fused_panel_rows(A: torch.Tensor, d2: torch.Tensor, j: torch.Tensor,
     return _panel_launcher("factor_fused_panels", launch, B, m)
 
 
+# argument types of csrc/accum_panel.cu's three C entry points
+ACCUM_ENTRY_ARGS = {"ipx_accum_panel": [_P, _P, _P, _I, _I, _I, _P],
+                    "ipx_accum_panel_lt": [_P, _P, _P, _I, _I, _I, _P],
+                    "ipx_lt_rows": [_P, _P, _P, _I, _I, _I, _P]}
+
+
 def _lt_panel_rows(M: torch.Tensor):
     """The panel stage of :func:`factor_lt_panels`: ``rows(k, prior, C)``
     fills C with ``M[:, o:o+NB, o:]`` less what the k prior panels take
@@ -454,8 +463,8 @@ def _lt_panel_rows(M: torch.Tensor):
         raise ValueError("M must be contiguous")
     if not M.is_cuda:
         return _lt_panel_rows_plain(M)
-    fn = _entry("factor_panels", "ipx_accum_panel",
-                [_P, _P, _P, _I, _I, _I, _P])
+    fn = _entry("accum_panel", "ipx_accum_panel",
+                ACCUM_ENTRY_ARGS["ipx_accum_panel"])
 
     def launch(prior, C, k):
         with torch.cuda.device(M.device):
@@ -699,7 +708,8 @@ def factor_lt_batched(M: torch.Tensor):
         LT[o:o+NB, :] = [0 | L_kk^T | W_k C[:, NB:]]
 
     three launches on the card (accumulate, diagonal, row panel).  The
-    accumulation is summed as in :func:`factor_lt_panels`."""
+    accumulation is the kernel of :func:`factor_lt_panels` over another
+    address map: on the same prior rows the two give C the same bits."""
     B, m = _check_square("factor_lt_batched", M)
     if not M.is_cuda:
         return factor_lt_batched_plain(M)
@@ -708,24 +718,43 @@ def factor_lt_batched(M: torch.Tensor):
     LT = torch.empty(B, m, m, **kw)
     W = torch.empty(B, nb, NB, NB, **kw)
     scratch = torch.empty(B * NB * m, **kw)
-    accum = _entry("factor_panels", "ipx_accum_panel_lt",
-                   [_P, _P, _P, _I, _I, _I, _P])
-    rows = _entry("factor_panels", "ipx_lt_rows",
-                  [_P, _P, _P, _I, _I, _I, _P])
     with torch.cuda.device(M.device):
-        st = _stream(M)
         for k in range(nb):
             o, w = k * NB, m - k * NB
             C = scratch[:B * NB * w].view(B, NB, w)
-            _launched("factor_lt_batched",
-                      accum(M.data_ptr(), LT.data_ptr(), C.data_ptr(), B, m,
-                            k, st), f"B={B}, m={m}, k={k} (accumulate)")
+            _lt_accumulate(M, LT, C, k)
             diag_factor_inv(C[:, :, :NB], LT[:, o:o + NB, o:o + NB], W[:, k])
             if nb > 1:
-                _launched("factor_lt_batched",
-                          rows(W.data_ptr(), C.data_ptr(), LT.data_ptr(), B,
-                               m, k, st), f"B={B}, m={m}, k={k} (row panel)")
+                _lt_row_panel(W, C, LT, k)
     return LT, W
+
+
+
+def _lt_accumulate(M: torch.Tensor, LT: torch.Tensor, C: torch.Tensor,
+                   k: int) -> None:
+    """Panel k's accumulation of :func:`factor_lt_batched`: C (B, NB, m - k
+    NB) = ``M[:, o:o+NB, o:]`` less what rows 0 .. k NB of LT take from it,
+    o = k NB; M and LT (B, m, m) float32 on the card.  One launch, counted;
+    one that fails raises."""
+    B, m = M.shape[0], M.shape[1]
+    fn = _entry("accum_panel", "ipx_accum_panel_lt",
+                ACCUM_ENTRY_ARGS["ipx_accum_panel_lt"])
+    _launched("factor_lt_batched",
+              fn(M.data_ptr(), LT.data_ptr(), C.data_ptr(), B, m, k,
+                 _stream(M)), f"B={B}, m={m}, k={k} (accumulate)")
+
+
+def _lt_row_panel(W: torch.Tensor, C: torch.Tensor, LT: torch.Tensor,
+                  k: int) -> None:
+    """Panel k's row panel of :func:`factor_lt_batched`: rows k NB .. (k+1)
+    NB of LT outside the diagonal tile, zeros to its left and ``W_k C[:, :,
+    NB:]`` to its right, from W (B, m / NB, NB, NB) and the accumulated C.
+    One launch, counted; one that fails raises."""
+    B, m = LT.shape[0], LT.shape[1]
+    fn = _entry("accum_panel", "ipx_lt_rows", ACCUM_ENTRY_ARGS["ipx_lt_rows"])
+    _launched("factor_lt_batched",
+              fn(W.data_ptr(), C.data_ptr(), LT.data_ptr(), B, m, k,
+                 _stream(LT)), f"B={B}, m={m}, k={k} (row panel)")
 
 
 def cholesky_batched_plain(M):

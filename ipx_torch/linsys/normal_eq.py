@@ -76,13 +76,21 @@ class NormalEqFactor:
 def assemble(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """M = (A * d2) @ A^T per instance, exploiting symmetry.
 
-    A bf16-stored A goes through the hand-written tile kernel
-    (``kernels.cholesky.assemble_sym_batched``).  Any other A takes the
-    block-syrk recursion below, which forms only the lower triangle with
-    library matmuls and mirrors the rest.
+    A bf16-stored A, and an f32 A on the card, go through the hand-written
+    tile kernels (``kernels.cholesky.assemble_sym_batched``: the tensor
+    cores for bf16, float32 FMAs for f32, both summed in two levels, as the
+    summation rule asks; a library matmul sums each entry in one float32
+    chain).  Any other A takes :func:`_assemble_blocks`.
     """
-    if A.dtype == torch.bfloat16:
-        return pk.assemble_sym_batched(A, d2.to(torch.float32).contiguous())
+    if A.dtype == torch.bfloat16 or (A.is_cuda and A.dtype == torch.float32):
+        return pk.assemble_sym_batched(A.contiguous(),
+                                       d2.to(torch.float32).contiguous())
+    return _assemble_blocks(A, d2)
+
+
+def _assemble_blocks(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    """:func:`assemble` as a block-syrk recursion that forms only the lower
+    triangle with library matmuls and mirrors the rest."""
     m = A.shape[-2]
 
     def blk_mm(alo, ahi, blo, bhi):

@@ -24,6 +24,15 @@ each of:
   of the relative error on the diagonal, and the RMS of the off-diagonal
   error relative to the largest entry of the tile (``chip_smoke.py``'s
   ``_start_tile_diagonals``, of this tree, over the checkout's kernels);
+- ``lt_start_tiles``: row 7's start tiles, the first tile of every C_k
+  (k >= 1) from ``factor_lt_panels``' accumulation launches on the float32
+  scaled regularised matrix of the same batches, with the factor's own
+  prior panels, against the float64 value of Ms's tile less sum_j P_j^T P_j:
+  ``whole`` relative to it and ``subtraction`` relative to the sum
+  subtracted; the diagonal's mean and RMS, the off-diagonal RMS and the
+  whole tile's mean and RMS relative to its largest entry
+  (``chip_smoke.py``'s ``_lt_start_tiles``, of this tree, over the
+  checkout's kernels);
 - ``right_update``: the trailing update of ``cholesky_batched``'s first
   panel (the diagonal factor, the panel TRSM and the update of the C entry
   points) on the scaled regularised matrix of the same batches, against
@@ -93,14 +102,26 @@ def fused_start_tiles(stats, A, d2, j, reg) -> None:
         _acc(stats, "fused_start_tiles/" + name, v)
 
 
-def right_update(stats, A, d2, j, reg) -> None:
-    """One panel step of the right-looking factor through the C entry
-    points: the diagonal factor, the TRSM and the update of panel 0."""
+def _scaled64(A, d2, j, reg):
     A64, j64 = A.double(), j.double()
     Ms64 = torch.matmul(A64 * d2.double().unsqueeze(1), A64.mT)
     Ms64 = Ms64 * j64.unsqueeze(2) * j64.unsqueeze(1)
     Ms64.diagonal(dim1=1, dim2=2).add_(reg.double().unsqueeze(-1))
-    T = Ms64.float().contiguous()
+    return Ms64
+
+
+def lt_start_tiles(stats, A, d2, j, reg) -> None:
+    Ms = _scaled64(A, d2, j, reg).float().contiguous()
+    panels, _ = pk.factor_lt_panels(Ms)
+    for name, v in SMOKE._lt_start_tiles(Ms, panels,
+                                         pk._lt_panel_rows(Ms)).items():
+        _acc(stats, "lt_start_tiles/" + name, v)
+
+
+def right_update(stats, A, d2, j, reg) -> None:
+    """One panel step of the right-looking factor through the C entry
+    points: the diagonal factor, the TRSM and the update of panel 0."""
+    T = _scaled64(A, d2, j, reg).float().contiguous()
     T0 = T.double()
     W = torch.empty(B, M // NB, NB, NB, device="cuda")
     tile = T[:, :NB, :NB]
@@ -129,6 +150,7 @@ def main() -> int:
         j = torch.rsqrt(fk.a_matvec(A, d2, square=True))
         assembly(stats, A, d2)
         fused_start_tiles(stats, A, d2, j, reg)
+        lt_start_tiles(stats, A, d2, j, reg)
         right_update(stats, A, d2, j, reg)
     for name, s in stats.items():
         print(json.dumps({"sums": name, **s}), flush=True)

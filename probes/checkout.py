@@ -1,8 +1,10 @@
 """What the probes that measure any checkout (``kernel_times.py``,
 ``assembly_error.py``) take from this tree rather than from the checkout
 measured: the timer, so that two checkouts are timed by the same code, the
-reference of row 5's start tiles in ``chip_smoke.py``, and row 9's panel
-launches for a kernel module that predates ``_right_panel``.  Import it after
+reference of rows 5's and 7's start tiles in ``chip_smoke.py``, and row 9's
+panel launches and row 10's accumulation and row-panel launches for a kernel
+module that predates ``_right_panel``, ``_lt_accumulate`` and
+``_lt_row_panel``.  Import it after
 the checkout's root is first on ``sys.path``."""
 import importlib.util
 from pathlib import Path
@@ -48,3 +50,27 @@ def right_panel(pk):
             raise RuntimeError(f"cholesky_right: launch failed at k={k}")
 
     return panel
+
+
+def lt_steps(pk):
+    """``(pk._lt_accumulate, pk._lt_row_panel)`` (panel k's accumulation and
+    row panel of ``factor_lt_batched``, one launch each), or for a kernel
+    module without them the same launches through its C entry points,
+    raising if one fails."""
+    if hasattr(pk, "_lt_accumulate"):
+        return pk._lt_accumulate, pk._lt_row_panel
+    args = [pk._P, pk._P, pk._P, pk._I, pk._I, pk._I, pk._P]
+    accum = pk._entry("factor_panels", "ipx_accum_panel_lt", args)
+    rows = pk._entry("factor_panels", "ipx_lt_rows", args)
+
+    def accumulate(M, LT, C, k):
+        if accum(M.data_ptr(), LT.data_ptr(), C.data_ptr(), M.shape[0],
+                 M.shape[1], k, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"ipx_accum_panel_lt: launch failed at k={k}")
+
+    def row_panel(W, C, LT, k):
+        if rows(W.data_ptr(), C.data_ptr(), LT.data_ptr(), LT.shape[0],
+                LT.shape[1], k, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"ipx_lt_rows: launch failed at k={k}")
+
+    return accumulate, row_panel

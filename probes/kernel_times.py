@@ -7,16 +7,21 @@ Imports ``ipx_torch`` from the checkout given, builds its kernels and prints
 one JSON line: the card, the build seconds, and CUDA-event times at B=256,
 m=1024, n=2048 (bf16 A) of the eight panel launches of the fused factor, the
 whole fused factor, ``ata_apply``, ``a_matvec`` (plain and squared),
-``at_matvec``, ``assemble_sym_batched``, ``factor_lt_panels`` /
-``factor_lt_batched`` / ``cholesky_batched`` on the assembled matrix,
+``at_matvec``, ``assemble_sym_batched`` (and on an f32 copy of A, row 4's
+float32 kernel), ``factor_lt_panels`` / ``factor_lt_batched`` /
+``cholesky_batched`` on the assembled matrix, the eight accumulation
+launches of ``factor_lt_panels`` alone on its own prior panels, the eight
+accumulation and the eight row-panel launches of ``factor_lt_batched``
+alone on its own L^T (each panel's C kept from a first pass),
 ``diag_factor_inv`` on its first diagonal tile, the 14 launches of
 ``cholesky_batched``'s panel TRSM and trailing update alone (its own time,
 without the 8 diagonal launches, each call on a fresh copy of the matrix
 with the factor's own W), and the pair-solves
 ``chol_solve_batched_panels`` (at B=256 and on the first 16 instances) and
 ``chol_solve_batched_lt`` on the fused factor, and a hash of the fused
-factor's, the panel pair-solve's, ``diag_factor_inv``'s and
-``cholesky_batched``'s bits.  The pair-solves are timed
+factor's, the panel pair-solve's, ``diag_factor_inv``'s,
+``cholesky_batched``'s, ``factor_lt_panels``' and ``factor_lt_batched``'s
+bits.  The pair-solves are timed
 queued behind a spinning kernel, so that at B=16 the time is the kernel's
 and not the host's time to launch it.  The timer is this tree's
 (``probes/checkout.py``), whichever checkout is measured.  To compare a
@@ -38,7 +43,7 @@ import torch  # noqa: E402
 
 from ipx_torch.kernels import _build, cholesky as pk, fused as fk  # noqa: E402
 
-from checkout import devinfo, right_panel  # noqa: E402
+from checkout import devinfo, lt_steps, right_panel  # noqa: E402
 
 nvidia_smi_line, time_ms = devinfo.nvidia_smi_line, devinfo.time_ms
 
@@ -94,6 +99,39 @@ out["factor_lt_panels"] = time_ms(lambda: pk.factor_lt_panels(Ms), reps=5,
                                   warm=1)
 out["factor_lt_batched"] = time_ms(lambda: pk.factor_lt_batched(Ms), reps=5,
                                    warm=1)
+p7, W7 = pk.factor_lt_panels(Ms)
+out["factor_lt_panels_sha"] = sha(*p7, W7)
+
+
+def lt_stages():
+    """factor_lt_panels' m / NB accumulation launches alone, on the factor's
+    own prior panels."""
+    rows = pk._lt_panel_rows(Ms)
+    for k in range(m // NB):
+        wk = m - k * NB
+        rows(k, p7[:k], scratch[:B * NB * wk].view(B, NB, wk))
+
+
+out["factor_lt_panels_own_x8"] = time_ms(lt_stages, reps=5, warm=1)
+del p7, W7
+LT10, W10 = pk.factor_lt_batched(Ms)
+out["factor_lt_batched_sha"] = sha(LT10, W10)
+accumulate, row_panel = lt_steps(pk)
+C10 = [torch.empty(B, NB, m - k * NB, device="cuda") for k in range(m // NB)]
+for k, C in enumerate(C10):
+    accumulate(Ms, LT10, C, k)
+LT10b = LT10.clone()
+out["factor_lt_batched_accumulate_x8"] = time_ms(
+    lambda: [accumulate(Ms, LT10, C, k) for k, C in enumerate(C10)], reps=5,
+    warm=1)
+out["factor_lt_batched_row_panels_x8"] = time_ms(
+    lambda: [row_panel(W10, C, LT10b, k) for k, C in enumerate(C10)], reps=5,
+    warm=1)
+del LT10, LT10b, W10, C10
+Af = A.float()
+out["assemble_sym_batched_f32"] = time_ms(
+    lambda: pk.assemble_sym_batched(Af, d2), reps=3, warm=1)
+del Af
 out["assemble_sym_batched"] = time_ms(lambda: pk.assemble_sym_batched(A, d2),
                                       reps=5, warm=1)
 CD = Ms[:, :NB, :NB].contiguous()

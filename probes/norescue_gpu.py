@@ -1,12 +1,14 @@
 """No-rescue convergence probe of the main path on the GPU.
 
     python3 probes/norescue_gpu.py [--batch 64] [--m 1024] [--n 2048]
+                                   [--root CHECKOUT]
 
 How many lanes of a batch end OPTIMAL without the rescue ladder, and what
 moves that count.  Runs ``ipx_torch.solve_batch`` on the same instances under
 a list of variants and prints one JSON line per variant with the status
 counts, the OPTIMAL count per 16 lanes and the quartiles of the best-iterate
-gap:
+gap (and, for the factor routes, the seconds of the whole solve_batch, host
+work included):
 
   baseline            throughput options on the library Cholesky
                       (chol_backend="xla"), this package's kernels
@@ -18,6 +20,11 @@ gap:
                       the right-looking kernel factor, and the left-looking
                       factor from library products, both solved by the
                       full-L^T pair-solve kernel
+  throughput_f32      throughput() as defined, A stored float32: the
+                      assembly's float32 kernel and the panel-major factor
+                      from the assembled matrix; and, where the package has
+                      it, the same with the assembly by library matmuls
+                      (throughput_f32/library_assembly)
   plain_kernels       the four kernel wrappers replaced by their plain versions
   chol_f64+trsm_f64   library factor and triangular solves done in float64
   asm_f64, matvec_f64, asm_f64+matvec_f64   the assembly / the A products
@@ -32,7 +39,7 @@ gap:
                       16), on the card and on the host's CPU (plain versions),
                       for a like-for-like pair
 
-``--routes-only`` stops after the first five (the factor routes side by
+``--routes-only`` stops after the first six (the factor routes side by
 side).  ``--assembled`` then runs ``cg_operator="assembled"`` on ``xla``,
 ``pallas_left`` and ``pallas``, and on ``pallas`` once more with that
 operator's product in float64 (``pallas/assembled_f64``), and stops: with
@@ -43,7 +50,9 @@ batch of one on both routes, prints one line per lane with its four ends
 (batch and alone, either route) and a summary: how often a lane alone ends
 as it did in the batch, and how the two routes compare alone.  The variants
 patch module attributes for the length of one run; nothing of the package
-depends on this file.  Needs a CUDA device.
+depends on this file.  ``--root`` imports ``ipx_torch`` from another
+checkout (a parent exported with ``git archive``), so that two trees run on
+one card in one call.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,11 +60,15 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_root = next((sys.argv[i + 1] for i, a in enumerate(sys.argv[:-1])
+              if a == "--root"),
+             os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, _root)
 
 import ipx_torch
 from ipx_torch.devinfo import nvidia_smi_line
@@ -83,7 +96,7 @@ def numpy_instance(m: int, n: int, seed: int):
     return c, A, (A @ x).astype(np.float32), float(c.astype(np.float64) @ x)
 
 
-def report(tag: str, sols) -> None:
+def report(tag: str, sols, seconds=None) -> None:
     status: dict = {}
     for s in sols:
         status[s.status_name] = status.get(s.status_name, 0) + 1
@@ -95,6 +108,7 @@ def report(tag: str, sols) -> None:
         "optimal_per_16": [sum(s.optimal for s in sols[i:i + 16])
                            for i in range(0, len(sols), 16)],
         "gap_quartiles": [gaps[q], gaps[2 * q], gaps[min(3 * q, len(gaps) - 1)]],
+        **({} if seconds is None else {"seconds": seconds}),
     }), flush=True)
 
 
@@ -147,11 +161,13 @@ def main() -> int:
     ap.add_argument("--m", type=int, default=1024)
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--root", default=_root,
+                    help="checkout whose ipx_torch is measured")
     ap.add_argument("--cpu-lanes", type=int, default=16,
                     help="lanes of the card-against-CPU pair (0: skip it)")
     ap.add_argument("--routes-only", action="store_true",
                     help="only baseline, pallas_left, pallas_left/plain, "
-                         "pallas, blocked_left")
+                         "pallas, blocked_left, throughput_f32")
     ap.add_argument("--assembled", action="store_true",
                     help="after the routes, cg_operator='assembled' on three "
                          "of them, then stop")
@@ -163,7 +179,8 @@ def main() -> int:
         sys.stderr.write("norescue_gpu: no CUDA device\n")
         return 2
     print(json.dumps({"card": nvidia_smi_line(), "batch": args.batch, "m": args.m,
-                      "n": args.n, "seed": args.seed}), flush=True)
+                      "n": args.n, "seed": args.seed, "root": args.root}),
+          flush=True)
 
     opts = ipx_torch.SolverOptions.throughput(
         chol_backend="xla", a_storage="bfloat16", augmented_fallback=False,
@@ -171,25 +188,47 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     lp = random_feasible_batch_device(args.batch, args.m, args.n, gen,
                                       a_storage="bfloat16").lp
-    run = lambda o=opts, p=lp: ipx_torch.solve_batch(p, options=o)
+    took = {}
+
+    def run(o=opts, p=lp):
+        """solve_batch, its seconds (host work included) in took["s"]"""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols = ipx_torch.solve_batch(p, options=o)
+        torch.cuda.synchronize()
+        took["s"] = time.perf_counter() - t0
+        return sols
 
     batch_sols = {"xla": run()}
-    report("baseline", batch_sols["xla"])
+    report("baseline", batch_sols["xla"], took["s"])
 
     left = opts.replace(chol_backend="pallas_left")
     batch_sols["pallas_left"] = run(left)
-    report("pallas_left", batch_sols["pallas_left"])
+    report("pallas_left", batch_sols["pallas_left"], took["s"])
     if args.alone > 0:
         alone(lp, {"pallas_left": left, "xla": opts}, batch_sols, args.alone)
     saved = (pk.factor_fused_panels, pk.chol_solve_batched_panels)
     pk.factor_fused_panels = pk.factor_fused_panels_plain
     pk.chol_solve_batched_panels = pk.chol_solve_batched_panels_plain
     try:
-        report("pallas_left/plain", run(left))
+        report("pallas_left/plain", run(left), took["s"])
     finally:
         pk.factor_fused_panels, pk.chol_solve_batched_panels = saved
     for backend in ("pallas", "blocked_left"):
-        report(backend, run(opts.replace(chol_backend=backend)))
+        report(backend, run(opts.replace(chol_backend=backend)), took["s"])
+    f32 = ipx_torch.SolverOptions.throughput(augmented_fallback=False,
+                                             max_iter=64)
+    report("throughput_f32", run(f32), took["s"])
+    if hasattr(ne, "_assemble_blocks"):
+        # the same with the float32 A assembled by library matmuls (one
+        # float32 chain an entry), as before the card's f32 A took row 4's
+        # float32 kernel
+        asm = ne.assemble
+        ne.assemble = lambda A, d2: ne._assemble_blocks(A, d2)
+        try:
+            report("throughput_f32/library_assembly", run(f32), took["s"])
+        finally:
+            ne.assemble = asm
     if args.assembled:
         for backend in ("xla", "pallas_left", "pallas"):
             report(f"{backend}/assembled", run(opts.replace(

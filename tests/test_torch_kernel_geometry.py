@@ -218,6 +218,76 @@ def test_right_entry_args_match_the_source():
         assert args == want, (name, params)
 
 
+def test_accum_panel_smem_and_registers_fit_one_block():
+    """Rows 7 and 10's warp-specialised kernels: the raw ring, the split
+    ring, the parked totals, two tiles of diagonal sums and the mbarriers,
+    as the source computes them and as its comment says, within the 227 KB
+    one block may ask for; one block of 384 threads an SM, whose 168
+    registers a thread the setmaxnreg handover only moves (a consumer
+    asking for more than the producers gave back would wait for ever);
+    every static_assert holds; both launches ask for exactly that size."""
+    c = _constexprs("panel_common.cuh", "accum_panel.cu")
+    text = (CSRC / "accum_panel.cu").read_text()
+    assert (c["CT"], c["PT"], c["AT"], c["CK"]) == (256, 128, 384, 16)
+    assert (c["RSTAGES"], c["SSTAGES"]) == (4, 3)
+    assert c["PART_B"] == 128 * 16 * 2
+    assert c["ACCUM_SMEM"] == (4 * 2 * 128 * 16 * 4 + 3 * 6 * 4096
+                               + 64 * 256 * 4 + 128 * 4 + 2 * 3 * 8)
+    assert c["ACCUM_SMEM"] <= 227 * 1024
+    assert f"// {c['ACCUM_SMEM']}" in text
+    assert c["LAUNCH_REGS"] == 65536 // 384 // 8 * 8 == 168
+    # the split for each consumer kind: wgmma, then mma.sync
+    regs = {}
+    for who in ("consumer", "producer"):
+        found = re.search(rf"{who} = WG \? (\d+) : (\d+);", text)
+        assert found, who
+        regs[who] = (int(found.group(1)), int(found.group(2)))
+    assert regs == {"consumer": (200, 224), "producer": (104, 56)}
+    for wg in (0, 1):
+        assert (256 * regs["consumer"][wg] + 128 * regs["producer"][wg]
+                == 384 * c["LAUNCH_REGS"])
+    asserts = _static_asserts("accum_panel.cu")
+    assert len(asserts) == 4
+    for cond in asserts:
+        for kind, wg in (("true", 0), ("false", 1)):
+            for who in ("consumer", "producer"):
+                cond = cond.replace(f"Regs<{kind}>::{who}",
+                                    str(regs[who][wg]))
+        assert eval(cond, {}, c), cond  # noqa: S307 - own source
+    assert text.count("__launch_bounds__(AT, 1)") == 2
+    assert "int(ACCUM_SMEM)" in text and text.count("AT, ACCUM_SMEM,") == 2
+    assert "setmaxnreg.inc" in text and "setmaxnreg.dec" in text
+    # the split parts: 8 x 8 core matrices, row n, contraction half kh
+    assert ("return (n >> 3) * 128 + kh * 64 + (n & 7) * 8;" in text)
+    assert ("(uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32)"
+            in text)
+
+
+def test_accum_entry_args_match_the_source():
+    """The argument types the factor wrappers (and the probes that launch
+    another build of the source) give rows 7 and 10's three C entry points,
+    against their declarations: a pointer for each pointer, a C int for
+    each int."""
+    import ctypes
+
+    from ipx_torch.kernels import cholesky as tpk
+
+    text = (CSRC / "accum_panel.cu").read_text()
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
+    assert set(tpk.ACCUM_ENTRY_ARGS) == set(
+        re.findall(r'extern "C" int (\w+)\(', text))
+    for name, args in tpk.ACCUM_ENTRY_ARGS.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert found, name
+        params = [p.strip() for p in found.group(1).split(",")]
+        want = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
+        assert args == want, (name, params)
+    # the CUDA-core panel kernels are gone from the diagonal kernel's source
+    old = (CSRC / "factor_panels.cu").read_text()
+    for name in tpk.ACCUM_ENTRY_ARGS:
+        assert name not in old, name
+
+
 def test_tensor_core_sources_share_one_mma_header():
     """The tensor-core kernels include the shared header and define none of
     its helpers again."""
@@ -227,7 +297,8 @@ def test_tensor_core_sources_share_one_mma_header():
     header = (CSRC / "mma_common.cuh").read_text()
     for h in helpers:
         assert h in header, h
-    for source in ("fused_panel.cu", "assemble_sym.cu", "cholesky_right.cu"):
+    for source in ("fused_panel.cu", "assemble_sym.cu", "cholesky_right.cu",
+                   "accum_panel.cu"):
         text = (CSRC / source).read_text()
         assert '#include "mma_common.cuh"' in text, source
         for h in helpers:
