@@ -18,10 +18,13 @@ full-L^T pair-solve), the same options on the library Cholesky
 ``"hybrid"``, ``"panels"`` and ``cg_operator="assembled"`` at B=64, two
 batches whose m = 1000 is off the 128 grid (padded routes),
 ``throughput()`` as defined at B=64 (A stored float32: row 4's float32
-kernel and the accumulation of an assembled matrix), the kernel
-module's own factor-then-solve paths at B=256, an f64 oracle solve on the
-card, twelve lanes solved alone, and the fixed-iteration rate of three factor
-routes.
+kernel and the accumulation of an assembled matrix), the rescue ladder
+(``augmented_fallback=True``) on the main path's 256 instances, the Schur-form
+route on every lane at B=64 and the augmented LU route at B=4, one stalled
+LP alone through ``ipx_torch.solve``'s ladder, ``refactor_period=2`` at
+B=64, the kernel module's own factor-then-solve paths at B=256, an f64
+oracle solve on the card, twelve lanes solved alone, and the
+fixed-iteration rate of three factor routes.
 Every phase prints one JSON line, and a line with its seconds; any failure
 exits non-zero.  Needs a CUDA
 device: without one it exits with code 2 and prints no result.
@@ -42,12 +45,13 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import ipx_torch
+import ipx_torch.api
 from ipx_torch.devinfo import nvidia_smi_line, time_ms
 from ipx_torch.ipm import batched
 from ipx_torch.kernels import _build
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import normal_eq
+from ipx_torch.linsys import augmented, normal_eq
 from ipx_torch.problem.generate import (lp_from_optimum,
                                         random_feasible_batch_device)
 
@@ -132,8 +136,8 @@ BF16_TC_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
 # the least time the card could take for the same work.
 ASM_PASSES, CHOL_PASSES = 3, 6
 DEV = "cuda"
-# Without the rescue ladder (not ported yet) a float32 lane may stop short
-# of OPTIMAL; at least half of the batch has to get there (measured on an
+# Without the rescue ladder (augmented_fallback=False) a float32 lane may
+# stop short of OPTIMAL; at least half of the batch has to get there (measured on an
 # H100 with these seeds: 214 of 256 on the kernel route, 202 of 256 on
 # "pallas", 49 of 64 on the library route, 45 to 54 of 64 on the other
 # backends, 11 of 16 at m = 1000), and every OPTIMAL lane is held to the full
@@ -171,7 +175,10 @@ EARLY_TOL = 1e-3
 
 N_RAGGED = 2045     # an n whose A rows are not 16-byte aligned
 B_XLA = 64          # batch of the library-Cholesky path and of the backends
-                    # that share the pair-solve kernels with the wide paths
+                    # that share the pair-solve kernels with the wide paths,
+                    # of the Schur-form route and of refactor_period=2
+B_LU = 4            # batch of the augmented LU route (K is (m+n)^2 a lane)
+N_LADDER_TRIES = 4  # stalled lanes tried alone until one drives the ladder
 B_PADDED = 16       # batch of the padded path
 M_PADDED = 1000     # its m, off the 128 grid
 
@@ -206,24 +213,43 @@ _MATVECS = ("ata_apply", "a_matvec", "at_matvec")
 _ASSEMBLED = _MATVECS + ("assemble_sym_batched",)
 _RIGHT = _ASSEMBLED + ("diag_factor_inv", "cholesky_batched",
                        "chol_solve_batched_lt")
+_LEFT = _MATVECS + ("factor_fused_panels", "diag_factor_inv",
+                    "chol_solve_batched_panels")
+_F32 = _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
+                     "chol_solve_batched_panels")
+# the Schur rung's reduced factor and its solves on pallas_left: row 5 (with
+# the squared stream of row 2 for its Jacobi scale), 5b, the pair-solve and
+# ata_apply as the inner CG operator (its other products are library ones)
+_SCHUR = ("ata_apply", "a_matvec", "factor_fused_panels", "diag_factor_inv",
+          "chol_solve_batched_panels")
 # which kernels each driven path must launch
 PATH_KERNELS = {
-    "pallas_left": _MATVECS + ("factor_fused_panels", "diag_factor_inv",
-                               "chol_solve_batched_panels"),
+    "pallas_left": _LEFT,
+    # throughput() with the rescue ladder: stage 1 is pallas_left
+    "rescue": _LEFT,
     "pallas": _RIGHT,
     "xla": _ASSEMBLED,
     "padded": _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
                             "chol_solve_batched_panels"),
-    "throughput_f32": _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
-                                    "chol_solve_batched_panels"),
+    "throughput_f32": _F32,
     "blocked_left": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
     "blocked": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_lt"),
     "hybrid": _ASSEMBLED + ("chol_solve_batched_lt",),
     "panels": _ASSEMBLED + ("diag_factor_inv", "chol_solve_batched_panels"),
     "assembled": _RIGHT,
     "padded_lt": _RIGHT,
+    "augmented_schur": _SCHUR,
+    # the LU route: an LU of K and library products, no kernel
+    "augmented": (),
+    # one LP alone: stage 1 on pallas_left, then the ladder's rungs
+    "ladder": _LEFT,
+    "refactor2": _F32,
     "kernel_api": LT_KERNELS + ("diag_factor_inv",),
 }
+# the library calls a path may make: the factor and triangular solve of the
+# library route, which the kernel paths must not make, and the LU route's
+FACTOR_CALLS = ("cholesky_ex", "solve_triangular")
+LU_CALLS = ("lu_factor_ex", "lu_solve")
 
 
 def emit(phase: str, **kw) -> None:
@@ -252,21 +278,21 @@ def slice_options(**kw):
         a_storage="bfloat16", augmented_fallback=False, max_iter=64, **kw)
 
 
-def f32_options():
+def f32_options(**kw):
     """``throughput()`` with its own ``a_storage="float32"``: an f32 A is
     assembled (row 4's float32 kernel) and factored from the assembled
     matrix (row 7), not by the fused panel stage."""
     return ipx_torch.SolverOptions.throughput(augmented_fallback=False,
-                                              max_iter=64)
+                                              max_iter=64, **kw)
 
 
 class LibraryFactorCalls:
-    """Counts calls of the library Cholesky and triangular solve while it
-    is active: the main path must make none."""
+    """Counts calls of the library Cholesky, triangular solve and LU while
+    it is active: the kernel paths must make none of the first two."""
 
     def __enter__(self):
-        self.calls = {"cholesky_ex": 0, "solve_triangular": 0}
-        self._orig = (torch.linalg.cholesky_ex, torch.linalg.solve_triangular)
+        self.calls = {name: 0 for name in FACTOR_CALLS + LU_CALLS}
+        self._orig = {name: getattr(torch.linalg, name) for name in self.calls}
 
         def counted(name, fn):
             def call(*a, **kw):
@@ -274,13 +300,71 @@ class LibraryFactorCalls:
                 return fn(*a, **kw)
             return call
 
-        torch.linalg.cholesky_ex = counted("cholesky_ex", self._orig[0])
-        torch.linalg.solve_triangular = counted("solve_triangular",
-                                                self._orig[1])
+        for name, fn in self._orig.items():
+            setattr(torch.linalg, name, counted(name, fn))
         return self
 
     def __exit__(self, *exc):
-        torch.linalg.cholesky_ex, torch.linalg.solve_triangular = self._orig
+        for name, fn in self._orig.items():
+            setattr(torch.linalg, name, fn)
+
+
+class RungRecorder:
+    """While active, wraps ``ipx_torch.api._run_batch``, through which every
+    run of the entry points goes (stage 1 and each rung of the rescue
+    ladder), and records per call: the route, whether it was warm-started,
+    lanes in, lanes OPTIMAL out, most iterations, seconds (synchronised) and
+    the kernel launches made in it.  The first warm-started
+    ``augmented_schur`` call's A and starting iterate are kept
+    (``schur_start``) for the reduced factor's check."""
+
+    def __enter__(self):
+        self.calls, self.schur_start = [], None
+        self._orig = ipx_torch.api._run_batch
+
+        def run(lp, opts, state0=None):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            st = self._orig(lp, opts, state0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = counts()
+            warm = state0 is not None
+            if opts.linsys == "augmented_schur" and warm \
+                    and self.schur_start is None:
+                k = min(B_CHECK, lp.A.shape[0])
+                self.schur_start = (lp.A[:k], state0.x[:k], state0.s[:k],
+                                    opts)
+            self.calls.append(dict(
+                linsys=opts.linsys, warm=warm, lanes=int(lp.A.shape[0]),
+                optimal=int((st.status == int(ipx_torch.Status.OPTIMAL)).sum()),
+                max_iterations=int(st.it.max()), seconds=round(secs, 3),
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}))
+            return st
+
+        ipx_torch.api._run_batch = run
+        return self
+
+    def __exit__(self, *exc):
+        ipx_torch.api._run_batch = self._orig
+
+    def rungs(self, in_batch: bool) -> list:
+        """The calls named as rungs: stage 1, then (``solve_batch`` only)
+        the in-batch Schur rung, then the ladder's LU warm, LU cold and
+        Schur rungs."""
+        out = []
+        for i, c in enumerate(self.calls):
+            if i == 0:
+                name = "stage1"
+            elif c["linsys"] == "augmented":
+                name = "lu_warm" if c["warm"] else "lu_cold"
+            elif in_batch and i == 1:
+                name = "in_batch_schur"
+            else:
+                name = "schur"
+            out.append({"rung": name, **c})
+        return out
 
 
 # --------------------------------------------------------------------------
@@ -631,10 +715,11 @@ def _mx(t: torch.Tensor) -> float:
 
 
 def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks,
-              tol_plain=TOL_PANELS_PLAIN) -> float:
+              tol_plain=TOL_PANELS_PLAIN, plain_own_error=False) -> float:
     """A kernel factor as (LT (B, m, m) = L^T, W) against the plain version's
-    LT (within tol_plain) and the f64 Cholesky of Ms64; returns the largest
-    |kernel - plain|."""
+    LT (within tol_plain, widened by the plain version's own distance from
+    the f64 factor where ``plain_own_error``) and the f64 Cholesky of Ms64;
+    returns the largest |kernel - plain|."""
     L64 = torch.linalg.cholesky(Ms64)
     scale = _mx(L64)
     if not bool(torch.isfinite(LTg).all()) or not bool(torch.isfinite(Wg).all()):
@@ -649,6 +734,8 @@ def _check_lt(phase, label, LTg, Wg, LTp, Ms64, checks,
                                 LTg[:, k * NB:(k + 1) * NB,
                                     k * NB:(k + 1) * NB].mT) - eye)
                for k in range(Wg.shape[1]))
+    if plain_own_error:
+        tol_plain += plain_vs_f64
     checks[label] = {"rel_err_vs_f64": vs_f64, "plain_vs_f64": plain_vs_f64,
                      "rel_err_vs_plain": abs_plain / scale,
                      "reconstruction": rec, "w_l_minus_i": winv}
@@ -1494,6 +1581,33 @@ def phase_kernel_api() -> dict:
     return launched
 
 
+def _contract_problems(sols, obj_star, n_min: int) -> tuple:
+    """The OPTIMAL lanes' objective errors, and what fails the contract:
+    a non-finite or misshapen lane, fewer than ``n_min`` OPTIMAL, an
+    OPTIMAL lane off the 1e-5 objective or the 1e-6 gap."""
+    opt = [(s, o) for s, o in zip(sols, obj_star) if s.optimal]
+    obj_err = [abs(s.objective - o) / (1 + abs(o)) for s, o in opt]
+    problems = []
+    if any(s.x.shape != (N_COLS,)
+           or not all(np.isfinite(a).all() for a in (s.x, s.y, s.s))
+           for s in sols):
+        problems.append("non-finite or misshapen solution")
+    if len(opt) < n_min:
+        problems.append(f"only {len(opt)} of {len(sols)} lanes OPTIMAL")
+    if obj_err and max(obj_err) > 1e-5:
+        problems.append(f"OPTIMAL objective off by {max(obj_err):.3e}")
+    if opt and max(s.rel_gap for s, _ in opt) > 1e-6:
+        problems.append("an OPTIMAL lane misses the 1e-6 gap")
+    return opt, obj_err, problems
+
+
+def _status_counts(sols) -> dict:
+    out: dict = {}
+    for s in sols:
+        out[s.status_name] = out.get(s.status_name, 0) + 1
+    return out
+
+
 def phase_solve_batch(path: str, batch: int, m: int, opts):
     """One whole ``solve_batch`` on ``batch`` fresh instances: every kernel
     of ``path`` must be launched, at least half of the lanes end OPTIMAL,
@@ -1510,16 +1624,13 @@ def phase_solve_batch(path: str, batch: int, m: int, opts):
         secs = time.perf_counter() - t0
     launched = counts()
 
-    obj_star = gb.obj_star.tolist()
-    by_status: dict = {}
-    for s in sols:
-        by_status[s.status_name] = by_status.get(s.status_name, 0) + 1
-    opt = [(s, o) for s, o in zip(sols, obj_star) if s.optimal]
-    obj_err = [abs(s.objective - o) / (1 + abs(o)) for s, o in opt]
+    opt, obj_err, problems = _contract_problems(
+        sols, gb.obj_star.tolist(), MIN_OPTIMAL_SHARE * batch)
     res = dict(
         batch=batch, m=m, n=N_COLS, chol_backend=opts.chol_backend,
-        cg_operator=opts.cg_operator,
-        seconds=round(secs, 3), status=by_status,
+        cg_operator=opts.cg_operator, linsys=opts.linsys,
+        refactor_period=opts.refactor_period,
+        seconds=round(secs, 3), status=_status_counts(sols),
         median_iterations=statistics.median(s.iterations for s in sols),
         max_iterations=max(s.iterations for s in sols),
         optimal_max_rel_gap=max((s.rel_gap for s, _ in opt), default=None),
@@ -1527,28 +1638,171 @@ def phase_solve_batch(path: str, batch: int, m: int, opts):
         optimal_max_rd_rel=max((s.rd_rel for s, _ in opt), default=None),
         optimal_max_obj_rel_err=max(obj_err, default=None),
         median_rel_gap=statistics.median(s.rel_gap for s in sols),
-        launches=launched, library_factor_calls=lib.calls)
-    problems = []
-    if any(s.x.shape != (N_COLS,)
-           or not all(np.isfinite(a).all() for a in (s.x, s.y, s.s))
-           for s in sols):
-        problems.append("non-finite or misshapen solution")
-    if len(opt) < MIN_OPTIMAL_SHARE * batch:
-        problems.append(f"only {len(opt)} of {batch} lanes OPTIMAL")
-    if obj_err and max(obj_err) > 1e-5:
-        problems.append(f"OPTIMAL objective off by {max(obj_err):.3e}")
-    if opt and max(s.rel_gap for s, _ in opt) > 1e-6:
-        problems.append("an OPTIMAL lane misses the 1e-6 gap")
+        launches=launched, library_calls=lib.calls)
     if any(launched[k] == 0 for k in PATH_KERNELS[path]):
         problems.append(f"a kernel of the path was never launched: {launched}")
     if opts.chol_backend not in ("xla", "hybrid") \
-            and any(lib.calls.values()):
+            and any(lib.calls[k] for k in FACTOR_CALLS):
         problems.append(f"library factor or triangular solve called on the "
                         f"kernel path: {lib.calls}")
+    if opts.linsys == "augmented" and not lib.calls["lu_factor_ex"]:
+        problems.append("the LU route made no lu_factor_ex call")
     emit(phase, ok=not problems, **res)
     if problems:
         fail(phase, "; ".join(problems))
     return gb, sols, launched
+
+
+def rescue_options():
+    """``throughput()`` with the rescue ladder (``augmented_fallback=True``,
+    the default): stage 1 is the main path."""
+    return ipx_torch.SolverOptions.throughput(a_storage="bfloat16",
+                                              max_iter=64)
+
+
+def _schur_factor_check(start, checks) -> float:
+    """The Schur rung's reduced factor at its first Mehrotra iterate (the
+    warm start, boost 1) against the plain version and the f64 Cholesky of
+    the f64 scaled matrix, with the panel factor's limits.  Against the
+    plain version the limit is widened by the plain version's own distance
+    from the f64 factor: with d2p spread over many decades (up to its cap
+    1 / aug_reg) the plain version's one float32 chain an entry is 1.0e-2
+    from it where the kernel is 6.7e-5 (H100, B=8 of the stalled lanes),
+    so the two differ by what the plain version gets wrong."""
+    A, x, s, opts = start
+    fac = augmented.factor_schur(A, x / s, opts)
+    ne = fac.ne
+    if not ne.LTp:
+        fail("solve_batch/rescue", "the reduced factor did not take the "
+             "panel route")
+    reg = torch.full((A.shape[0],), opts.reg, device=DEV)
+    plain = pk.factor_fused_panels_plain(A, fac.d2p, ne.j, reg)
+    Ms64 = _scaled_f64(A, fac.d2p, ne.j, reg)
+    checks["d2p_max"] = _mx(fac.d2p)
+    checks["d2p_min"] = float(fac.d2p.min())
+    return _check_lt("solve_batch/rescue_reduced_factor",
+                     "schur_first_iterate", _lt_of(ne.LTp), ne.W,
+                     _lt_of(plain[0]), Ms64, checks, plain_own_error=True)
+
+
+def phase_rescue(gb, main_sols):
+    """``solve_batch`` with the rescue ladder on the main path's instances.
+    Its stage 1 is the main path's computation, so no lane OPTIMAL there
+    may be lost; the stalled lanes go through the in-batch Schur rung
+    (rows 1, 5, 5b and 6 on the reduced system) and the per-LP rungs, and
+    at least one must come back OPTIMAL.  Per rung: lanes in, lanes fixed,
+    seconds and launches, recorded around ``ipx_torch.api._run_batch``."""
+    phase = "solve_batch/rescue"
+    opts = rescue_options()
+    torch.cuda.synchronize()
+    reset_counts()
+    with LibraryFactorCalls() as lib, RungRecorder() as rec:
+        t0 = time.perf_counter()
+        sols = ipx_torch.solve_batch(gb.lp, options=opts, device=DEV)
+        secs = time.perf_counter() - t0
+    launched = counts()
+    batch = len(sols)
+    main_opt = [i for i, s in enumerate(main_sols) if s.optimal]
+    lost = [i for i in main_opt if not sols[i].optimal]
+    opt, obj_err, problems = _contract_problems(
+        sols, gb.obj_star.tolist(), len(main_opt))
+    rungs = rec.rungs(in_batch=True)
+    schur = [r for r in rungs if r["rung"] == "in_batch_schur"]
+    stalled = batch - len(main_opt)
+    if lost:
+        problems.append(f"lanes OPTIMAL without the rescue are not now: "
+                        f"{lost[:8]}")
+    if any(launched[k] == 0 for k in PATH_KERNELS["rescue"]):
+        problems.append(f"a kernel of the path was never launched: "
+                        f"{launched}")
+    if schur and any(not schur[0]["launches"].get(k) for k in _SCHUR):
+        problems.append(f"the Schur rung launched not every kernel of its "
+                        f"reduced system: {schur[0]['launches']}")
+    if any(lib.calls[k] for k in FACTOR_CALLS):
+        problems.append(f"library factor or triangular solve called: "
+                        f"{lib.calls}")
+    if stalled and len(opt) <= len(main_opt):
+        problems.append("the rescue fixed none of the stalled lanes")
+    its = [s.iterations for s in sols]
+    res = dict(batch=batch, m=M_ROWS, n=N_COLS, seconds=round(secs, 3),
+               status=_status_counts(sols),
+               optimal_without_rescue=len(main_opt),
+               median_iterations=statistics.median(its),
+               max_iterations=max(its),
+               optimal_max_rel_gap=max((s.rel_gap for s, _ in opt),
+                                       default=None),
+               optimal_max_obj_rel_err=max(obj_err, default=None),
+               rungs=[{"rung": r["rung"], "lanes_in": r["lanes"],
+                       "optimal_out": r["optimal"], "seconds": r["seconds"],
+                       "max_iterations": r["max_iterations"],
+                       "launches": r["launches"]} for r in rungs],
+               launches=launched, library_calls=lib.calls)
+    emit(phase, ok=not problems, **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    if rec.schur_start is not None:
+        checks = {}
+        _schur_factor_check(rec.schur_start, checks)
+        emit("solve_batch/rescue_reduced_factor", ok=True, batch_check=len(
+            rec.schur_start[0]), checks=checks)
+    return launched
+
+
+def phase_ladder(gb, main_sols):
+    """``ipx_torch.solve`` alone on lanes the main path left STALLED, in
+    order, until one drives the single-LP ladder (a lane alone may end
+    otherwise than in its batch); the LU rungs run at full width
+    (K of order m + n)."""
+    phase = "solve/ladder"
+    opts = rescue_options()
+    stalled = [i for i, s in enumerate(main_sols)
+               if s.status_name == "STALLED"][:N_LADDER_TRIES]
+    tried, launched = [], None
+    for i in stalled:
+        lp = ipx_torch.LP(c=gb.lp.c[i], A=gb.lp.A[i], b=gb.lp.b[i],
+                          obj_offset=gb.lp.obj_offset[i])
+        torch.cuda.synchronize()
+        reset_counts()
+        with LibraryFactorCalls() as lib, RungRecorder() as rec:
+            t0 = time.perf_counter()
+            sol = ipx_torch.solve(lp, options=opts, presolve=False,
+                                  device=DEV)
+            secs = time.perf_counter() - t0
+        launched = counts()
+        rungs = rec.rungs(in_batch=False)
+        o = float(gb.obj_star[i])
+        row = dict(lane=i, status=sol.status_name, iterations=sol.iterations,
+                   rel_gap=sol.rel_gap,
+                   obj_rel_err=abs(sol.objective - o) / (1 + abs(o)),
+                   seconds=round(secs, 3),
+                   fixed_by=next((r["rung"] for r in rungs
+                                  if r["optimal"]), None),
+                   rungs=[{k: r[k] for k in ("rung", "optimal", "seconds",
+                                             "max_iterations")}
+                          for r in rungs],
+                   library_calls=dict(lib.calls))
+        tried.append(row)
+        if len(rungs) > 1:
+            break
+    problems = []
+    for row in tried:
+        if row["status"] == "OPTIMAL" and (row["obj_rel_err"] > 1e-5
+                                           or row["rel_gap"] > 1e-6):
+            problems.append(f"lane {row['lane']}: OPTIMAL but off the "
+                            "contract")
+    driven = tried and len(tried[-1]["rungs"]) > 1
+    if not driven:
+        problems.append(f"none of the STALLED lanes {stalled} drove the "
+                        "ladder alone")
+    elif any(launched[k] == 0 for k in PATH_KERNELS["ladder"]):
+        problems.append(f"a kernel of the path was never launched: "
+                        f"{launched}")
+    if driven and not tried[-1]["library_calls"]["lu_factor_ex"]:
+        problems.append("the ladder ran no LU rung")
+    emit(phase, ok=not problems, lanes=tried)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
 
 
 def phase_oracle_f64(gb) -> None:
@@ -1713,6 +1967,10 @@ def main() -> int:
     # the main path: throughput() as it stands, every factor and every
     # preconditioner apply through the hand-written kernels
     gb, sols = drive("pallas_left", B_MAIN, M_ROWS, slice_options())
+    # the same instances with the rescue ladder: stage 1 as above, then the
+    # in-batch Schur rung and the per-LP rungs on the lanes it stalled
+    by_path["rescue"] = timed(phase_rescue, gb, sols,
+                              name="solve_batch/rescue")
     # the same batch at full width on the right-looking kernel factor and
     # the full-L^T pair-solve
     drive("pallas", B_MAIN, M_ROWS, slice_options(chol_backend="pallas"))
@@ -1729,6 +1987,13 @@ def main() -> int:
           slice_options(chol_backend="pallas", cg_operator="assembled"))
     drive("padded_lt", B_PADDED, M_PADDED,
           slice_options(chol_backend="pallas"))
+    # the rescue ladder's routes on their own, every lane, and one LP alone
+    # through the ladder; refactor_period=2 on throughput() as defined
+    drive("augmented_schur", B_XLA, M_ROWS,
+          slice_options(linsys="augmented_schur"))
+    drive("augmented", B_LU, M_ROWS, slice_options(linsys="augmented"))
+    by_path["ladder"] = timed(phase_ladder, gb, sols, name="solve/ladder")
+    drive("refactor2", B_XLA, M_ROWS, f32_options(refactor_period=2))
     by_path["kernel_api"] = timed(phase_kernel_api)
     timed(phase_oracle_f64, gb)
     timed(phase_single, gb, sols)

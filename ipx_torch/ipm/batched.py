@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from ipx_torch.ipm import mehrotra
-from ipx_torch.ipm.state import IPMState, init_state
+from ipx_torch.ipm.state import IPMState, init_state, select_lanes
+from ipx_torch.linsys import normal_eq
 from ipx_torch.numerics import vdot
 from ipx_torch.options import SolverOptions, check_ported
 from ipx_torch.problem.lp import LP
@@ -56,8 +57,14 @@ def run_batch(lp: LP, opts: SolverOptions,
     """Solve a batch of LPs.
 
     The loop condition ``any(lane RUNNING and under the cap)`` is the one
-    device-to-host read per iteration.  ``state0`` resumes or warm-starts
-    the whole batch; its residual fields are refreshed here.
+    device-to-host read per loop body.  ``state0`` resumes or warm-starts
+    the whole batch (the rescue ladder's warm rungs); its residual fields
+    are refreshed here.  The starting point is computed all the same: its
+    AA^T factor is the projection's.
+
+    With ``refactor_period = k > 1`` a body factors once and takes k steps:
+    the first fresh, the k - 1 trailing ones with that factor as a stale
+    preconditioner and ``stale_solve_cg`` CG iterations.
     """
     check_ported(opts)
     lp = lp.with_a_storage(opts)
@@ -66,9 +73,19 @@ def run_batch(lp: LP, opts: SolverOptions,
         st = start
     else:
         st = mehrotra.refresh_residuals(lp, state0, opts)
+    stale = opts.replace(refine_steps=opts.stale_solve_cg)
     running = int(Status.RUNNING)
     while bool(((st.status == running) & (st.it < opts.max_iter)).any()):
-        st = mehrotra.step_masked(lp, st, opts, fac_aat)
+        if opts.refactor_period == 1:
+            st = mehrotra.step_masked(lp, st, opts, fac_aat)
+            continue
+        boost0 = st.reg_boost
+        fac = normal_eq.factor(lp.A, st.x / st.s, opts,
+                               reg_scale=st.reg_boost)
+        st = mehrotra.step_masked(lp, st, opts, fac_aat, fac)
+        for _ in range(opts.refactor_period - 1):
+            st = mehrotra.step_masked_stale(lp, st, stale, fac_aat, fac,
+                                            boost0)
     return mehrotra.finalize_status(st, opts)
 
 
@@ -76,9 +93,30 @@ def run_batch_fixed_iters(lp: LP, state: IPMState, num_iters: int,
                           opts: SolverOptions, fac_aat=None) -> IPMState:
     """Advance the whole batch exactly ``num_iters`` steps (no masking, no
     host reads): the steady-state cost of one batched Mehrotra iteration,
-    for rate measurements."""
+    for rate measurements.
+
+    With ``refactor_period = k > 1`` and ``fac_aat`` given, one factor
+    serves k steps, so ``num_iters`` must be a multiple of k.  A trailing
+    stale step leaves a lane whose boost rose in the block as it was (status
+    and the cap are not looked at here): the lane would fail again the same
+    way under the same factor."""
     check_ported(opts)
     lp = lp.with_a_storage(opts)
-    for _ in range(num_iters):
-        state = mehrotra.mehrotra_step(lp, state, opts, fac_aat)
+    period = opts.refactor_period if fac_aat is not None else 1
+    if num_iters % period:
+        raise ValueError(f"num_iters={num_iters} is not a multiple of "
+                         f"refactor_period={period}")
+    if period == 1:
+        for _ in range(num_iters):
+            state = mehrotra.mehrotra_step(lp, state, opts, fac_aat)
+        return state
+    stale = opts.replace(refine_steps=opts.stale_solve_cg)
+    for _ in range(num_iters // period):
+        boost0 = state.reg_boost
+        fac = normal_eq.factor(lp.A, state.x / state.s, opts,
+                               reg_scale=state.reg_boost)
+        state = mehrotra.mehrotra_step(lp, state, opts, fac_aat, fac)
+        for _ in range(period - 1):
+            new = mehrotra.mehrotra_step(lp, state, stale, fac_aat, fac)
+            state = select_lanes(state.reg_boost <= boost0, new, state)
     return state

@@ -17,10 +17,10 @@ import dataclasses
 
 import torch
 
-from ipx_torch.ipm.state import IPMState, select_lanes
+from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import normal_eq
-from ipx_torch.numerics import inf_norm, mv, vdot
+from ipx_torch.linsys import augmented, normal_eq
+from ipx_torch.numerics import inf_norm, mv, mv_wide, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
@@ -31,13 +31,17 @@ def _col(a: torch.Tensor) -> torch.Tensor:
     return a.unsqueeze(-1)
 
 
-def _matvecs(A: torch.Tensor, fuse: bool):
-    """(w -> A @ w, v -> A^T @ v) on the route the options select.  A
+def _matvecs(A: torch.Tensor, opts: SolverOptions):
+    """(w -> A @ w, v -> A^T @ v) on the route the options select: the fused
+    kernels, or library products, summed in float64 on the augmented routes
+    (their endgame is measured by these residuals: with one-chain float32
+    sums the CPU's batches of degenerate LPs lose lanes there).  A
     bf16-stored A cannot meet an f32 vector in a library matmul: the kernels
-    upcast it in registers, ``mv`` makes a transient f32 copy."""
-    if fuse:
+    upcast it in registers, ``mv`` makes a transient copy."""
+    if normal_eq.use_fused_matvec(opts, A):
         return (lambda w: fk.a_matvec(A, w)), (lambda v: fk.at_matvec(A, v))
-    return (lambda w: mv(A, w)), (lambda v: mv(A.mT, v))
+    prod = mv_wide if opts.linsys.startswith("augmented") else mv
+    return (lambda w: prod(A, w)), (lambda v: prod(A.mT, v))
 
 
 def max_step(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
@@ -58,7 +62,7 @@ def starting_point(lp: LP, opts: SolverOptions):
     """
     A, b, c = lp.A, lp.b, lp.c
     fac = normal_eq.factor(A, torch.ones_like(c), opts)
-    fwd, tr = _matvecs(A, normal_eq.use_fused_matvec(opts, A))
+    fwd, tr = _matvecs(A, opts)
     x = tr(normal_eq.solve(fac, A, b, opts))
     y = normal_eq.solve(fac, A, fwd(c), opts)
     s = c - tr(y)
@@ -78,7 +82,7 @@ def starting_point(lp: LP, opts: SolverOptions):
     return x_new, y, s_new, fac
 
 
-def _scalars(lp: LP, x, y, s, fused: bool = False):
+def _scalars(lp: LP, x, y, s, opts: SolverOptions):
     """Residuals, duality measure, relative gap, per lane.
 
     The gap criterion is the COMPLEMENTARITY gap x@s/(1+|c@x|), not the
@@ -89,14 +93,15 @@ def _scalars(lp: LP, x, y, s, fused: bool = False):
     rp, rd <= tol_feas.
     """
     n = lp.n
-    if fused:
+    if normal_eq.use_fused_matvec(opts, lp.A):
         # A@x and A^T y are an independent pair: one A stream
         ax, aty = fk.ata_apply(lp.A, y, None, x)
         rp = ax - lp.b
         rd = aty + s - lp.c
     else:
-        rp = mv(lp.A, x) - lp.b
-        rd = mv(lp.A.mT, y) + s - lp.c
+        fwd, tr = _matvecs(lp.A, opts)
+        rp = fwd(x) - lp.b
+        rd = tr(y) + s - lp.c
     mu = vdot(x, s) / n
     pobj = vdot(lp.c, x)
     rp_rel = inf_norm(rp) / (1 + inf_norm(lp.b))
@@ -112,19 +117,25 @@ def refresh_residuals(lp: LP, state: IPMState, opts: SolverOptions
     The step reads residuals from the state instead of streaming A again at
     entry: the previous step's exit already measured them on the same
     iterate.  Every run entry point calls this once outside the loop."""
-    fuse = normal_eq.use_fused_matvec(opts, lp.A)
-    rp, rd, mu, *_ = _scalars(lp, state.x, state.y, state.s, fused=fuse)
+    rp, rd, mu, *_ = _scalars(lp, state.x, state.y, state.s, opts)
     return dataclasses.replace(state, rp=rp, rd=rd, mu=mu)
 
 
 def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
-                  fac_aat=None) -> IPMState:
+                  fac_aat=None, fac=None) -> IPMState:
     """One predictor-corrector iteration for every lane (no masking).
 
     ``fac_aat`` is the loop-invariant Cholesky factor of A A^T (from the
     starting point); when given, each direction is projected back onto the
     null-space condition A dx = -rp, canceling the f32 feasibility drift
     that the ill-conditioned D^2 injects near convergence.
+
+    ``fac`` injects a precomputed normal-equations factor (the
+    ``refactor_period`` lever): the step then skips its own factorization
+    and uses the given, possibly stale, factor as the CG preconditioner.
+    Its ``d2`` is replaced with this iterate's, so the matrix-free operator
+    and every refinement residual target the current system; only the
+    preconditioner lags.
     """
     A = lp.A
     x, y, s = state.x, state.y, state.s
@@ -137,7 +148,12 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     rp, rd, mu = state.rp, state.rd, state.mu
     mu_safe = torch.clamp(mu, min=1e-30)
 
-    do_project = opts.project_feasibility
+    # The projection is a normal-equations fix: the augmented routes satisfy
+    # the primal row directly, and projecting through the AA^T factor puts
+    # back the squared conditioning they exist to avoid (in ipx it flips
+    # degenerate lanes from OPTIMAL to STALLED).
+    do_project = (opts.project_feasibility
+                  and not opts.linsys.startswith("augmented"))
 
     # --- factor A D^2 A^T once, reuse for both solves ------------------------
     # d2 is deliberately NOT range-clipped: huge x/s entries are tamed by
@@ -145,7 +161,10 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     # directions spuriously mobile.  f32 PSD loss near convergence is handled
     # by the cross-iteration regularization escalation (state.reg_boost).
     d2 = x / s
-    fac = normal_eq.factor(A, d2, opts, reg_scale=state.reg_boost)
+    if fac is None:
+        fac = normal_eq.factor(A, d2, opts, reg_scale=state.reg_boost)
+    else:
+        fac = dataclasses.replace(fac, d2=d2)
 
     # Options for the normal-eq solves INSIDE refinement sweeps: the sweep
     # rhs is an already-small KKT residual, so a cheaper solve perturbs the
@@ -153,11 +172,16 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     ref_opts = (opts if opts.refine_solve_cg < 0
                 else opts.replace(refine_steps=opts.refine_solve_cg))
 
-    a_mv, at_mv = _matvecs(A, fuse)
+    a_mv, at_mv = _matvecs(A, opts)
 
     def newton_direction(e_p, e_d, e_xs, sopts=opts):
         """Solve  A dx = -e_p;  A^T dy + ds = -e_d;  S dx + X ds = -e_xs
-        via the normal equations."""
+        via the normal equations, or the augmented system on its routes."""
+        if opts.linsys == "augmented":
+            return augmented.solve_newton(fac, A, x, s, e_p, e_d, e_xs, opts)
+        if opts.linsys == "augmented_schur":
+            return augmented.solve_newton_schur(fac, A, x, s, e_p, e_d, e_xs,
+                                                opts)
         rhs = -e_p - a_mv(d2 * e_d - e_xs / s)
         dy = normal_eq.solve(fac, A, rhs, sopts)
         ds = -e_d - at_mv(dy)
@@ -334,7 +358,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
 
     # --- convergence / failure bookkeeping -----------------------------------
     rp_n, rd_n, mu_n, rp_rel, rd_rel, rel_gap, pobj = _scalars(
-        lp, x_new, y_new, s_new, fused=fuse)
+        lp, x_new, y_new, s_new, opts)
 
     finite = (torch.isfinite(x_new).all(-1) & torch.isfinite(y_new).all(-1)
               & torch.isfinite(s_new).all(-1) & torch.isfinite(rel_gap)
@@ -373,8 +397,9 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     exhausted = ~finite & (state.reg_boost >= boost_cap)
     # Every failure raises the decay floor to 10x the boost that just
     # FAILED, so a decaying boost never revisits a level the problem has
-    # already broken at.  On the dense route the decay factor is
-    # reg_boost_decay_dense (1.0 = sticky).
+    # already broken at.  The decay factor is reg_boost_decay_dense (1.0 =
+    # sticky) on every route this package carries: ipx takes
+    # reg_boost_decay on the sharded routes only, which are refused here.
     decay = opts.reg_boost_decay_dense
     reg_floor = torch.where(
         finite, state.reg_floor,
@@ -454,14 +479,51 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
 
 
 def step_masked(lp: LP, state: IPMState, opts: SolverOptions,
-                fac_aat=None) -> IPMState:
+                fac_aat=None, fac=None) -> IPMState:
     """Step only lanes that are RUNNING and under the iteration cap; the
     others keep their state.  The explicit ``it < max_iter`` guard keeps any
-    lane from overshooting the cap while OTHER lanes keep the loop alive."""
-    new = mehrotra_step(lp, state, opts, fac_aat)
+    lane from overshooting the cap while OTHER lanes (or the trailing steps
+    of a ``refactor_period`` block) keep the loop alive."""
+    new = mehrotra_step(lp, state, opts, fac_aat, fac)
     active = ((state.status == int(Status.RUNNING))
               & (state.it < opts.max_iter))
     return select_lanes(active, new, state)
+
+
+def step_masked_stale(lp: LP, state: IPMState, opts: SolverOptions,
+                      fac_aat, fac, boost0: torch.Tensor) -> IPMState:
+    """A trailing stale step of a ``refactor_period`` block.
+
+    On top of :func:`step_masked`'s freeze, a lane is skipped once its
+    ``reg_boost`` has risen above ``boost0``, the level the block's factor
+    was built with.  The boost rises only on a non-finite step, so a lane
+    skipped here already failed in this block: its remaining stale steps
+    would revert to the same iterate and fail the same way, raising the
+    boost toward the cap without a fresh factor ever testing it.  The next
+    block's fresh factor uses the escalated reg."""
+    new = mehrotra_step(lp, state, opts, fac_aat, fac)
+    active = ((state.status == int(Status.RUNNING))
+              & (state.it < opts.max_iter)
+              & (state.reg_boost <= boost0))
+    return select_lanes(active, new, state)
+
+
+def warm_start_state(lp: LP, x, y, s, opts: SolverOptions) -> IPMState:
+    """An initial state from a previous, related solution, per lane.
+
+    A converged point is badly centered for a new run (complementarity
+    products near 0), so both x and s are shifted off their bounds by
+    sqrt(mu_seed), mu_seed = max(x@s/n, warm_start_mu): the first
+    iterations re-center instead of stalling on zero ratio tests (the
+    warm-start recipe of Gondzio & Grothey, Skajaa et al.)."""
+    dtype = lp.c.dtype
+    x, y, s = (torch.as_tensor(v, dtype=dtype, device=lp.c.device)
+               for v in (x, y, s))
+    mu_seed = torch.clamp(vdot(x, s) / lp.n, min=opts.warm_start_mu)
+    shift = _col(torch.sqrt(mu_seed))
+    x = torch.maximum(x, shift)
+    s = torch.maximum(s, shift)
+    return init_state(x, y, s, vdot(x, s) / lp.n, opts.max_iter)
 
 
 def finalize_status(state: IPMState, opts: SolverOptions) -> IPMState:

@@ -73,6 +73,13 @@ class NormalEqFactor:
                         # cg_operator="assembled", else absent
 
 
+def _augmented():
+    """``linsys.augmented``, imported at first use: it builds its reduced
+    system on this module, which imports it only to dispatch."""
+    from ipx_torch.linsys import augmented
+    return augmented
+
+
 def assemble(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """M = (A * d2) @ A^T per instance, exploiting symmetry.
 
@@ -143,7 +150,15 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
     is the true unscaled, unregularized one, then removes.  ``reg_scale``
     ((B,) tensor or float) is the per-lane escalation factor
     (``IPMState.reg_boost``) raised after a non-finite step.
+
+    On ``linsys="augmented"`` and ``"augmented_schur"`` the factor is that
+    route's (``linsys.augmented``), so every caller, the starting point
+    included, factors the system its route solves.
     """
+    if opts.linsys == "augmented":
+        return _augmented().factor(A, d2, opts, reg_scale)
+    if opts.linsys == "augmented_schur":
+        return _augmented().factor_schur(A, d2, opts, reg_scale)
     if opts.chol_backend != "xla":
         return _factor_blocked(A, d2, opts, reg_scale)
     M = assemble(A, d2)
@@ -390,7 +405,13 @@ def solve(fac: NormalEqFactor, A: torch.Tensor, rhs: torch.Tensor,
     matrix-free (it sets the accuracy floor); the CG recurrences then stream
     the assembled m x m matrix ``fac.M``, a quarter of the bytes per
     iteration.
+
+    On the augmented routes the solve goes through that route's factor.
     """
+    if opts.linsys == "augmented":
+        return _augmented().normal_solve(fac, A, rhs, opts)
+    if opts.linsys == "augmented_schur":
+        return _augmented().normal_solve_schur(fac, A, rhs, opts)
     tiny = torch.finfo(rhs.dtype).tiny
 
     if use_fused_matvec(opts, A):

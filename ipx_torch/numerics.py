@@ -45,6 +45,19 @@ def mv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_like(a, x), x.unsqueeze(-1)).squeeze(-1)
 
 
+def mv_wide(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mv` summed in float64 and rounded once to ``x``'s dtype, as the
+    matvec kernels sum.  A library float32 matrix-vector product may sum
+    each entry in one float32 chain (torch's on the CPU does), which the
+    summation rule does not accept.  The transient copy of ``a`` is
+    float64."""
+    if x.dtype == torch.float64:
+        return mv(a, x)
+    f64 = torch.float64
+    return torch.matmul(a.to(f64), x.to(f64).unsqueeze(-1)).squeeze(-1).to(
+        x.dtype)
+
+
 def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-instance dot product ``(B, k), (B, k) -> (B,)``."""
     return (x * y).sum(dim=-1)

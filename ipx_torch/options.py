@@ -176,14 +176,10 @@ def check_ported(opts: SolverOptions) -> None:
     An option is either honoured or refused, never silently replaced.  Each
     message names the ROADMAP.md item that will carry the value.
     """
-    if opts.linsys != "dense":
+    if opts.linsys.startswith("sharded"):
         raise NotImplementedError(
-            f"linsys={opts.linsys!r} is not ported yet (ROADMAP.md: rescue "
-            "ladder for 'augmented*', large single LP for 'sharded*')")
-    if opts.refactor_period > 1:
-        raise NotImplementedError(
-            "refactor_period > 1 is not ported yet (ROADMAP.md: "
-            "observability, refactor_period, warm start, CLI)")
+            f"linsys={opts.linsys!r} is not ported yet (ROADMAP.md: module "
+            "5, large single LP and multi-device)")
     if opts.dtype == "bfloat16":
         raise NotImplementedError(
             "dtype='bfloat16' as COMPUTE dtype is not carried: "

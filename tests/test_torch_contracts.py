@@ -83,15 +83,16 @@ def _tiny_lp():
 
 
 NOT_PORTED = [
-    dict(linsys="augmented"), dict(linsys="augmented_schur"),
-    dict(linsys="sharded"), dict(refactor_period=2),
-    dict(dtype="bfloat16"), dict(augmented_fallback=True),
+    dict(linsys="sharded"), dict(linsys="sharded_schur"),
+    dict(dtype="bfloat16"),
 ]
 # option values that were refused until their code path was carried
 NOW_PORTED = [
     dict(chol_backend="pallas"), dict(chol_backend="blocked"),
     dict(chol_backend="blocked_left"), dict(chol_backend="panels"),
     dict(chol_backend="hybrid"), dict(cg_operator="assembled"),
+    dict(linsys="augmented"), dict(linsys="augmented_schur"),
+    dict(refactor_period=2), dict(augmented_fallback=True),
 ]
 
 
@@ -110,7 +111,7 @@ def test_unported_option_values_are_refused(kw):
 def test_ported_option_values_solve(kw):
     """Each solves the tiny LP (optimum 1 at x = (0, 1, 0)) on the CPU,
     through both entry points; objective within 1e-5 (float32, gap 1e-6)."""
-    opts = ipx_torch.SolverOptions(augmented_fallback=False, **kw)
+    opts = ipx_torch.SolverOptions(**{"augmented_fallback": False, **kw})
     sols = ipx_torch.solve_batch([_tiny_lp()], options=opts, device="cpu")
     one = ipx_torch.solve(_tiny_lp(), options=opts, presolve=False,
                           device="cpu")
@@ -120,11 +121,13 @@ def test_ported_option_values_solve(kw):
 
 
 def test_presolve_and_default_fallback_are_refused():
+    """presolve=True is still refused; the default augmented_fallback=True
+    was refused until the rescue ladder was carried, and now solves."""
     ok = ipx_torch.SolverOptions(augmented_fallback=False)
     with pytest.raises(NotImplementedError, match="presolve"):
         ipx_torch.solve(_tiny_lp(), options=ok, device="cpu")
-    with pytest.raises(NotImplementedError, match="augmented_fallback"):
-        ipx_torch.solve(_tiny_lp(), presolve=False, device="cpu")
+    sol = ipx_torch.solve(_tiny_lp(), presolve=False, device="cpu")
+    assert sol.optimal and abs(sol.objective - 1.0) <= 1e-5
     # throughput() as it stands names pallas_left, and runs
     unchanged = ipx_torch.SolverOptions.throughput(augmented_fallback=False)
     assert unchanged.chol_backend == "pallas_left"

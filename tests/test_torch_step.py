@@ -19,10 +19,12 @@ import jax.numpy as jnp
 import ipx
 import ipx_torch
 from ipx.ipm import batched as jb, mehrotra as jm
+from ipx.linsys import normal_eq as jne
 from ipx.problem.generate import random_feasible_lp
 from ipx.problem.lp import LP as JLP
 from ipx_torch import convert
 from ipx_torch.ipm import batched as tb, mehrotra as tm
+from ipx_torch.linsys import normal_eq as tne
 
 torch.set_num_threads(1)
 
@@ -40,28 +42,74 @@ def _instances(B, m, n, bf16=False):
     return c, A, b
 
 
-def _jax_side(c, A, b, opts, dtype, steps):
+def _jax_side(c, A, b, opts, dtype, steps, factors=None):
+    """``steps`` steps from the starting state; with refactor_period > 1
+    the steps of ipx's batched loop body: a fresh factor and step, then
+    stale steps, each block's factor appended to ``factors``."""
     lp = JLP(c=jnp.asarray(c, dtype), A=jnp.asarray(A, dtype),
              b=jnp.asarray(b, dtype),
              obj_offset=jnp.zeros((A.shape[0],), dtype)).with_a_storage(opts)
-    st, fac = jax.jit(lambda l: jb.batch_starting_state(l, opts))(lp)
-    step = jax.jit(jax.vmap(
-        lambda lp_i, st_i, f: jm.mehrotra_step(lp_i, st_i, opts, f)))
+    st, fac_aat = jax.jit(lambda l: jb.batch_starting_state(l, opts))(lp)
     out = [st]
-    for _ in range(steps):
-        out.append(step(lp, out[-1], fac))
+    if opts.refactor_period == 1:
+        step = jax.jit(jax.vmap(
+            lambda lp_i, st_i, f: jm.mehrotra_step(lp_i, st_i, opts, f)))
+        for _ in range(steps):
+            out.append(step(lp, out[-1], fac_aat))
+    else:
+        stale = opts.replace(refine_steps=opts.stale_solve_cg)
+        factor = jax.jit(jax.vmap(
+            lambda a, d, rb: jne.factor(a, d, opts, reg_scale=rb)))
+        fresh = jax.jit(jax.vmap(lambda lp_i, st_i, f, fc: jm.step_masked(
+            lp_i, st_i, opts, f, fc)))
+        stale_step = jax.jit(jax.vmap(
+            lambda lp_i, st_i, f, fc, b0: jm.step_masked_stale(
+                lp_i, st_i, stale, f, fc, b0)))
+        for k in range(steps):
+            st = out[-1]
+            if k % opts.refactor_period == 0:
+                boost0 = st.reg_boost
+                fac = factor(lp.A, st.x / st.s, st.reg_boost)
+                factors.append(fac)
+                out.append(fresh(lp, st, fac_aat, fac))
+            else:
+                out.append(stale_step(lp, st, fac_aat, fac, boost0))
     return [{f.name: np.asarray(getattr(s_, f.name))
              for f in dataclasses.fields(s_)} for s_ in out]
 
 
-def _torch_side(c, A, b, opts, dtype, state0, steps):
+def _factor_of_ipx(fac) -> tne.NormalEqFactor:
+    """ipx's library-route factor as the port's, values unchanged (ipx
+    assembles and factors an f64 run's preconditioner in float32: a
+    deliberate difference, ROADMAP.md section 3)."""
+    f64 = lambda a: torch.tensor(np.asarray(a, np.float64))
+    return tne.NormalEqFactor(L=f64(fac.L), j=f64(fac.j), d2=f64(fac.d2),
+                              ok=torch.tensor(np.asarray(fac.ok)))
+
+
+def _torch_side(c, A, b, opts, dtype, state0, steps, factors=()):
+    """The port's steps from ``state0``.  With refactor_period > 1 each
+    block takes ipx's factor from ``factors``: two stale CG iterations
+    leave the preconditioner's float32 roundings in the step, where a fresh
+    step's converged CG removes them."""
+    factors = list(factors)
     lp = convert.lp_from_numpy(c, A, b, device="cpu", dtype=dtype)
     lp = lp.with_a_storage(opts)
-    _, fac = tb.batch_starting_state(lp, opts)
+    _, fac_aat = tb.batch_starting_state(lp, opts)
     st = convert.state_from_numpy(state0, device="cpu", dtype=dtype)
     out = [st]
-    for _ in range(steps):
-        out.append(tm.mehrotra_step(lp, out[-1], opts, fac))
+    stale = opts.replace(refine_steps=opts.stale_solve_cg)
+    for k in range(steps):
+        st = out[-1]
+        if opts.refactor_period == 1:
+            out.append(tm.mehrotra_step(lp, st, opts, fac_aat))
+        elif k % opts.refactor_period == 0:
+            boost0 = st.reg_boost
+            fac = _factor_of_ipx(factors.pop(0))
+            out.append(tm.step_masked(lp, st, opts, fac_aat, fac))
+        else:
+            out.append(tm.step_masked_stale(lp, st, stale, fac_aat, fac,
+                                            boost0))
     return [convert.state_to_numpy(s_) for s_ in out]
 
 
@@ -73,14 +121,25 @@ def _rel(a, b):
 KW = dict(augmented_fallback=False, max_iter=16)
 
 
-@pytest.mark.parametrize("extra", [dict(), dict(gondzio_correctors=1)],
-                         ids=["default", "gondzio"])
+@pytest.mark.parametrize("extra", [
+    dict(), dict(gondzio_correctors=1), dict(linsys="augmented"),
+    dict(linsys="augmented_schur"),
+    # a stale step's refinement sweeps solve through a factor one iterate
+    # old with two CG iterations, and amplify roundings: in ipx itself a
+    # 1e-15 relative change of x moves the next x by 8.0e-9 with the
+    # default sweeps and by 2.2e-12 without them
+    # (probes/stale_step_sensitivity.py).  So the case steps without
+    # sweeps, where a step is a function of its inputs to 1e-9
+    dict(refactor_period=2, kkt_refine_steps=0, predictor_refine_steps=0)],
+    ids=["default", "gondzio", "augmented", "augmented_schur", "refactor2"])
 def test_five_f64_steps_step_locked(extra):
     c, A, b = _instances(2, 64, 128)
     kw = dict(dtype="float64", **KW, **extra)
-    js = _jax_side(c, A, b, ipx.SolverOptions(**kw), jnp.float64, 5)
+    factors = []
+    js = _jax_side(c, A, b, ipx.SolverOptions(**kw), jnp.float64, 5,
+                   factors)
     ts = _torch_side(c, A, b, ipx_torch.SolverOptions(**kw), torch.float64,
-                     js[0], 5)
+                     js[0], 5, factors)
     for k in range(1, 6):
         for f in ("x", "y", "s", "mu", "rp", "rd", "best_x"):
             assert _rel(ts[k][f], js[k][f]) <= 1e-9, (k, f)
