@@ -23,21 +23,31 @@ kernel and the accumulation of an assembled matrix), the rescue ladder
 route on every lane at B=64 and the augmented LU route at B=4, one stalled
 LP alone through ``ipx_torch.solve``'s ladder, ``refactor_period=2`` at
 B=64, the kernel module's own factor-then-solve paths at B=256, an f64
-oracle solve on the card, twelve lanes solved alone, and the
-fixed-iteration rate of three factor routes.
+oracle solve on the card, twelve lanes solved alone, the
+fixed-iteration rate of three factor routes, and the front ends:
+``ipx_torch.solve(c, A, b)`` with its default presolve at the main path's
+width, ``solve_general`` on a general LP of 1536 x 2432 in standard form
+against HiGHS (also with A rounded to bf16 values and stored bf16),
+``solve_mps`` on the committed fixtures, ``solve_many`` on mixed sizes, a
+chunked solve resumed from its on-disk snapshots, and ``python -m
+ipx_torch`` in child processes.
 Every phase prints one JSON line, and a line with its seconds; any failure
 exits non-zero.  Needs a CUDA
 device: without one it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+from scipy.optimize import linprog
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; "
@@ -46,14 +56,20 @@ if not torch.cuda.is_available():
 
 import ipx_torch
 import ipx_torch.api
+from ipx_torch import native, obs
 from ipx_torch.devinfo import nvidia_smi_line, time_ms
 from ipx_torch.ipm import batched
 from ipx_torch.kernels import _build
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
 from ipx_torch.linsys import augmented, normal_eq
+from ipx_torch.numerics import dtype_of
 from ipx_torch.problem.generate import (lp_from_optimum,
-                                        random_feasible_batch_device)
+                                        random_feasible_batch_device,
+                                        random_feasible_lp,
+                                        random_general_lp)
+from ipx_torch.problem.lp import GeneralLP
+from ipx_torch.problem.mps import read_mps
 
 M_ROWS, N_COLS = 1024, 2048         # the main path's width
 B_CHECK = 8                         # batch of the kernel-vs-plain comparison
@@ -245,6 +261,18 @@ PATH_KERNELS = {
     "ladder": _LEFT,
     "refactor2": _F32,
     "kernel_api": LT_KERNELS + ("diag_factor_inv",),
+    # the front ends: the default options run the library route, whose
+    # assembly of an f32 A on the card is row 4's float32 kernel;
+    # throughput() with an f32 A the assembled panel route (row 7), on or
+    # off the 128 grid; a bf16 A on the grid the fused panel route
+    "presolve": ("assemble_sym_batched",),
+    "presolve_throughput": _F32,
+    "general": ("assemble_sym_batched",),
+    "general_throughput": _F32,
+    "general_bf16": _LEFT,
+    "mps": ("assemble_sym_batched",),
+    "many": _F32,
+    "resume": ("assemble_sym_batched",),
 }
 # the library calls a path may make: the factor and triangular solve of the
 # library route, which the kernel paths must not make, and the LU route's
@@ -1940,6 +1968,478 @@ def phase_rate(gb, card: str) -> None:
          pallas=out["pallas"])
 
 
+# --------------------------------------------------------------------------
+# the problem layer and front ends
+# --------------------------------------------------------------------------
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"     # snapshots of the resume phase
+# the full-width general LP: 1536 x 2432 in standard form (each bounded
+# variable adds a row; presolve keeps every row)
+GENERAL_LP = dict(seed=0, n=1024, m_eq=128, m_ub=384, n_free=8,
+                  scale_spread=1.0)
+GENERAL_TOL = 5e-7      # the solve's gap, as tests/test_netlib_suite.py
+TOL_GENERAL_OBJ = 1e-6  # objective against HiGHS, relative
+TOL_GENERAL_FEAS = 1e-5  # rows and bounds in original units, as the suite
+TOL_CONSTRUCTED = 1e-5  # objective against a constructed optimum (contract)
+FIXTURES = ("classic01_max.mps", "classic02.mps", "syn01.mps", "syn02.mps",
+            "syn03_max.mps")
+# the hand-derived optima of tests/test_mps_fixtures.py (f32 limits there:
+# objective 1e-6 relative, x within 1e-4)
+CLASSIC_OPTIMA = {"classic01_max.mps": (21.0, [3.0, 3.0, 2.0, -1.0, 6.0, 1.0]),
+                  "classic02.mps": (5.0, [-1.0, 3.0, 0.0])}
+N_MANY = 48             # LPs of solve_many, m drawn from M_MANY, n = 2m
+M_MANY = (320, 1024)
+SNAPSHOT_EVERY = 4
+# a resumed solve: objective and extra iterations against one
+# uninterrupted solve (the limits of tests/test_obs_cli.py)
+TOL_RESUME_OBJ = 1e-6
+RESUME_EXTRA_ITERS = 4
+CLI_TIMEOUT = 300
+
+
+def _rel(got: float, ref: float) -> float:
+    return abs(got - ref) / (1 + abs(ref))
+
+
+class Stages:
+    """While active, wraps the front ends' stages in ``ipx_torch.api`` and
+    sums the seconds of each: ``to_standard_form``, ``_presolve`` and
+    ``bucket_lps`` (host), ``_run_batch`` (every device loop, stage 1 and
+    the ladder's rungs, synchronised), ``_primal_polish`` (host).  What is
+    left of the whole call is postsolve, the host's f64 re-check of the
+    reported point and the moves to and from the card.  ``expect`` names
+    the stages the phase's calls must go through: a name missing from
+    ``ipx_torch.api`` raises on entry and an expected stage never called
+    raises on exit, so a renamed stage cannot report zero seconds."""
+    NAMES = ("to_standard_form", "_presolve", "bucket_lps", "_run_batch",
+             "_primal_polish")
+    # the polish runs only on an OPTIMAL exit, which the phases check
+    FRONT = ("to_standard_form", "_presolve", "_run_batch")
+
+    def __init__(self, *expect: str):
+        unknown = set(expect) - set(self.NAMES)
+        if unknown:
+            raise ValueError(f"unknown stages {sorted(unknown)}")
+        self.expect = expect
+
+    def __enter__(self):
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.buckets = None
+        self.bucket_lanes = []      # input indices in the order solved
+        self.stage1 = []            # each stage 1's statuses (dense, cold)
+        self._orig = {n: getattr(ipx_torch.api, n) for n in self.NAMES}
+
+        def timed_call(name, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+                if name == "bucket_lps":
+                    self.buckets = {f"{m}x{n}": len(v)
+                                    for (m, n), v in sorted(out.items())}
+                    self.bucket_lanes = [i for _, v in sorted(out.items())
+                                         for i, _ in v]
+                if name == "_run_batch":
+                    run = inspect.signature(fn).bind(*a, **kw).arguments
+                    if run["opts"].linsys == "dense" \
+                            and run.get("state0") is None:
+                        self.stage1 += out.status.tolist()
+                return out
+            return call
+
+        for name, fn in self._orig.items():
+            setattr(ipx_torch.api, name, timed_call(name, fn))
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.total = time.perf_counter() - self._t0
+        for name, fn in self._orig.items():
+            setattr(ipx_torch.api, name, fn)
+        never = [n for n in self.expect if self.calls[n] == 0]
+        if never and exc[0] is None:
+            raise RuntimeError(f"stages never called: {never}; was a "
+                               f"function of ipx_torch.api renamed?")
+
+    def split(self) -> dict:
+        s = self.seconds
+        front = s["to_standard_form"] + s["_presolve"] + s["bucket_lps"]
+        return dict(
+            seconds=round(self.total, 3),
+            standard_form_s=round(s["to_standard_form"], 3),
+            presolve_s=round(s["_presolve"], 3),
+            padding_s=round(s["bucket_lps"], 3),
+            device_solve_s=round(s["_run_batch"], 3),
+            device_runs=self.calls["_run_batch"],
+            postsolve_polish_s=round(self.total - front - s["_run_batch"], 3),
+            polish_s=round(s["_primal_polish"], 3))
+
+
+def _launch_problems(path: str, launched: dict) -> list:
+    if any(launched[k] == 0 for k in PATH_KERNELS[path]):
+        return [f"a kernel of the path {path} was never launched: "
+                f"{launched}"]
+    return []
+
+
+def _finite(sol, n: int) -> list:
+    if sol.x.shape != (n,) or not all(np.isfinite(a).all()
+                                      for a in (sol.x, sol.y, sol.s)):
+        return ["non-finite or misshapen solution"]
+    return []
+
+
+def phase_presolve(gen) -> dict:
+    """``ipx_torch.solve(c, A, b)`` with its default ``presolve=True`` on
+    one LP at the main path's width, under the default options (the
+    library route) and under ``throughput()``: OPTIMAL, within 1e-5 of the
+    constructed optimum, with host seconds for presolve, the device loop
+    and postsolve with the polish."""
+    phase = "solve/presolve"
+    out = {}
+    for path, opts in (("presolve", ipx_torch.SolverOptions()),
+                       ("presolve_throughput",
+                        ipx_torch.SolverOptions.throughput())):
+        torch.cuda.synchronize()
+        reset_counts()
+        with Stages(*Stages.FRONT[1:]) as st:
+            sol = ipx_torch.solve(gen.c, gen.A, gen.b, options=opts,
+                                  device=DEV)
+        out[path] = launched = counts()
+        err = _rel(sol.objective, gen.obj_star)
+        problems = _finite(sol, N_COLS) + _launch_problems(path, launched)
+        if not sol.optimal:
+            problems.append(f"ended {sol.status_name}")
+        elif err > TOL_CONSTRUCTED:
+            problems.append(f"objective off the constructed optimum by "
+                            f"{err:.3e}")
+        emit(phase, ok=not problems, options=path, m=M_ROWS, n=N_COLS,
+             chol_backend=opts.chol_backend, status=sol.status_name,
+             iterations=sol.iterations, obj_rel_err=err,
+             rel_gap=sol.rel_gap, rp_rel=sol.rp_rel, rd_rel=sol.rd_rel,
+             **st.split(), launches=launched)
+        if problems:
+            fail(phase, "; ".join(problems))
+    return out
+
+
+def _highs(glp) -> float:
+    """HiGHS's optimum of a GeneralLP, in the problem's own sense."""
+    ref = linprog(glp.c, A_ub=glp.A_ub, b_ub=glp.b_ub, A_eq=glp.A_eq,
+                  b_eq=glp.b_eq, bounds=list(zip(glp.lb, glp.ub)),
+                  method="highs")
+    if ref.status != 0:
+        raise RuntimeError(f"HiGHS ended with status {ref.status}")
+    obj = ref.fun + glp.obj_offset
+    return -obj if getattr(glp, "maximize", False) else obj
+
+
+def _general_problems(glp, sol, ref_obj: float) -> tuple:
+    """``tests/test_netlib_suite.py``'s limits: OPTIMAL, the objective
+    against HiGHS, rows and bounds in original units."""
+    err = _rel(sol.objective, ref_obj)
+    scale = 1 + max(np.abs(glp.b_ub).max(initial=0.0),
+                    np.abs(glp.b_eq).max(initial=0.0))
+    feas = max((glp.A_ub @ sol.x - glp.b_ub).max(initial=0.0),
+               np.abs(glp.A_eq @ sol.x - glp.b_eq).max(initial=0.0)) / scale
+    bounds = max((glp.lb - sol.x).max(initial=0.0),
+                 (sol.x - glp.ub).max(initial=0.0))
+    problems = _finite(sol, glp.n)
+    if not sol.optimal:
+        problems.append(f"ended {sol.status_name}")
+    elif err > TOL_GENERAL_OBJ:
+        problems.append(f"objective off HiGHS by {err:.3e}")
+    if sol.optimal and not (feas <= TOL_GENERAL_FEAS
+                            and bounds <= TOL_GENERAL_FEAS):
+        problems.append(f"infeasible in original units: rows {feas:.3e}, "
+                        f"bounds {bounds:.3e}")
+    return dict(obj_rel_err=err, row_violation_rel=feas,
+                bound_violation=bounds), problems
+
+
+def _bf16_values(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(a).to(torch.bfloat16).double().numpy()
+
+
+def phase_general() -> dict:
+    """``ipx_torch.solve_general`` on the full-width general LP (standard
+    form, presolve with Ruiz scaling, the device solve, postsolve with the
+    polish) under the default options and ``throughput()``, each against
+    HiGHS; then the same LP with A_eq and A_ub rounded to bf16 values under
+    ``throughput(a_storage="bfloat16")`` (power-of-two scales keep the
+    scaled A exact in bf16), against HiGHS on the rounded data."""
+    glp = random_general_lp(**GENERAL_LP)
+    rounded = GeneralLP(
+        c=glp.c, A_ub=_bf16_values(glp.A_ub), b_ub=glp.b_ub,
+        A_eq=_bf16_values(glp.A_eq), b_eq=glp.b_eq, lb=glp.lb, ub=glp.ub,
+        name=glp.name + "_bf16")
+    m_std, n_std = ipx_torch.to_standard_form(glp)[1].shape
+    out = {}
+    runs = (("solve_general", "general", glp, ipx_torch.SolverOptions(
+                tol=GENERAL_TOL)),
+            ("solve_general", "general_throughput", glp,
+             ipx_torch.SolverOptions.throughput(tol=GENERAL_TOL)),
+            ("solve_general/bf16", "general_bf16", rounded,
+             ipx_torch.SolverOptions.throughput(tol=GENERAL_TOL,
+                                                a_storage="bfloat16")))
+    refs = {}
+    for phase, path, lp, opts in runs:
+        if lp.name not in refs:
+            t0 = time.perf_counter()
+            refs[lp.name] = (_highs(lp), time.perf_counter() - t0)
+        ref_obj, highs_s = refs[lp.name]
+        torch.cuda.synchronize()
+        reset_counts()
+        with Stages(*Stages.FRONT) as st:
+            sol = ipx_torch.solve_general(lp, opts, device=DEV)
+        out[path] = launched = counts()
+        res, problems = _general_problems(lp, sol, ref_obj)
+        problems += _launch_problems(path, launched)
+        emit(phase, ok=not problems, options=path, m_std=m_std, n_std=n_std,
+             a_storage=opts.a_storage, chol_backend=opts.chol_backend,
+             status=sol.status_name, iterations=sol.iterations,
+             objective=sol.objective, highs_objective=ref_obj,
+             highs_s=round(highs_s, 3), rel_gap=sol.rel_gap,
+             rp_rel=sol.rp_rel, rd_rel=sol.rd_rel, **res, **st.split(),
+             launches=launched)
+        if problems:
+            fail(phase, "; ".join(problems))
+    return out
+
+
+def _same_lp(a, b) -> bool:
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("c", "A_ub", "b_ub", "A_eq", "b_eq", "lb", "ub"))
+            and a.obj_offset == b.obj_offset and a.name == b.name
+            and getattr(a, "maximize", False) == getattr(b, "maximize",
+                                                         False))
+
+
+def phase_mps() -> dict:
+    """``ipx_torch.solve_mps`` on the five committed fixtures under the
+    default options: the native tokenizer built and loaded, both parsers
+    giving the same LP, each solve OPTIMAL within 1e-6 of HiGHS, and the
+    two classic files at their hand-derived optima."""
+    phase = "solve_mps"
+    problems = []
+    if native.load_mps_lib() is None:
+        fail(phase, "the native MPS tokenizer did not build or load")
+    # parsing, the parsers' comparison and HiGHS stay outside the timed
+    # window: it holds the solves alone
+    parsed, refs = {}, {}
+    for name in FIXTURES:
+        path = str(ROOT / "tests" / "fixtures" / name)
+        parsed[name] = py = read_mps(path, use_native=False)
+        if not _same_lp(py, read_mps(path, use_native=True)):
+            problems.append(f"{name}: the parsers disagree")
+        refs[name] = _highs(py)
+    sols = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    with Stages(*Stages.FRONT) as st:
+        for name in FIXTURES:
+            sols[name] = ipx_torch.solve_mps(
+                str(ROOT / "tests" / "fixtures" / name), device=DEV)
+    rows = []
+    for name in FIXTURES:
+        py, sol = parsed[name], sols[name]
+        row = dict(file=name, m_ub=py.A_ub.shape[0], m_eq=py.A_eq.shape[0],
+                   n=py.n, status=sol.status_name, iterations=sol.iterations,
+                   objective=sol.objective,
+                   obj_rel_err_highs=_rel(sol.objective, refs[name]))
+        if not sol.optimal or row["obj_rel_err_highs"] > TOL_GENERAL_OBJ:
+            problems.append(f"{name}: {sol.status_name}, objective off "
+                            f"HiGHS by {row['obj_rel_err_highs']:.3e}")
+        if name in CLASSIC_OPTIMA:
+            obj, xstar = CLASSIC_OPTIMA[name]
+            row["obj_rel_err_pinned"] = _rel(sol.objective, obj)
+            row["x_err_pinned"] = float(np.abs(sol.x - xstar).max())
+            if row["obj_rel_err_pinned"] > TOL_GENERAL_OBJ \
+                    or row["x_err_pinned"] > 1e-4:
+                problems.append(f"{name}: off its pinned optimum")
+        rows.append(row)
+    launched = counts()
+    problems += _launch_problems("mps", launched)
+    emit(phase, ok=not problems, native_library=str(native.library_path()),
+         parsers_identical=not any("parsers" in p for p in problems),
+         files=rows, **st.split(), launches=launched)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
+def _over_limit(sol, g, opts, rescued: bool) -> dict:
+    """An OPTIMAL lane off its constructed optimum by more than
+    TOL_CONSTRUCTED.  Its error splits exactly as c@x - c@x* =
+    y*@(A x - b) + s*@x (c = A^T y* + s*, b = A x*): the part of its primal
+    residual and its optimality part.  A lane that stage 1 ended OPTIMAL is
+    never right past the limit: the dense route projects onto Ax = b.  A
+    lane the rescue ladder ended OPTIMAL is right when its OPTIMAL
+    certificate holds in float64 (gap within tol, both residuals within
+    the solver's feasibility tolerance) and its optimality part is within
+    TOL_CONSTRUCTED: the ladder's routes have no projection, and ``ipx``'s
+    in-batch Schur rung ends such lanes with the same residual and the
+    same error (``probes/schur_rung_cpu.py``, ROADMAP.md section 3)."""
+    scale = 1 + abs(g.obj_star)
+    tol_feas = max(opts.tol_feas, opts.feas_eps_mult
+                   * torch.finfo(dtype_of(opts.dtype)).eps)
+    row = dict(m=g.A.shape[0], rescued=rescued,
+               obj_rel_err=_rel(sol.objective, g.obj_star),
+               infeasibility_part=float(g.y_star @ (g.A @ sol.x - g.b))
+               / scale,
+               optimality_part=float(g.s_star @ sol.x) / scale,
+               iterations=sol.iterations, rel_gap=sol.rel_gap,
+               rp_rel=sol.rp_rel, rd_rel=sol.rd_rel, tol_feas=tol_feas)
+    row["right"] = bool(rescued
+                        and abs(row["optimality_part"]) <= TOL_CONSTRUCTED
+                        and sol.rel_gap <= opts.tol
+                        and max(sol.rp_rel, sol.rd_rel) <= tol_feas)
+    return row
+
+
+def phase_many() -> dict:
+    """``ipx_torch.solve_many`` on N_MANY LPs of mixed sizes (m drawn from
+    M_MANY with a seeded generator, n = 2m) under ``throughput()``: the
+    buckets, padded on the host, land on and off the 128 grid.  At least
+    half OPTIMAL; every lane that stage 1 ends OPTIMAL within 1e-5 of its
+    constructed optimum; every lane the rescue ladder ends OPTIMAL within
+    1e-5 or, past it, right by its certificate (``_over_limit``); every
+    lane past 1e-5 is printed."""
+    phase = "solve_many"
+    opts = ipx_torch.SolverOptions.throughput()
+    ms = np.random.default_rng(0).integers(M_MANY[0], M_MANY[1] + 1, N_MANY)
+    gens = [random_feasible_lp(int(m), 2 * int(m), seed=i)
+            for i, m in enumerate(ms)]
+    torch.cuda.synchronize()
+    reset_counts()
+    with Stages("bucket_lps", "_run_batch") as st:
+        sols = ipx_torch.solve_many([(g.c, g.A, g.b) for g in gens],
+                                    options=opts, device=DEV)
+    launched = counts()
+    problems = _launch_problems("many", launched)
+    stage1 = dict(zip(st.bucket_lanes, st.stage1))
+    if sorted(stage1) != list(range(N_MANY)) \
+            or len(st.stage1) != N_MANY:
+        problems.append(f"stage 1 not read once for every lane: "
+                        f"{len(st.stage1)} statuses")
+    rescued = {i for i, code in stage1.items()
+               if code != int(ipx_torch.Status.OPTIMAL)}
+    errs = [_rel(s.objective, g.obj_star)
+            for s, g in zip(sols, gens) if s.optimal]
+    over = {i: _over_limit(s, g, opts, i in rescued)
+            for i, (s, g) in enumerate(zip(sols, gens)) if s.optimal
+            and _rel(s.objective, g.obj_star) > TOL_CONSTRUCTED}
+    for s, g in zip(sols, gens):
+        problems += _finite(s, g.A.shape[1])[:1]
+    if len(errs) < N_MANY / 2:
+        problems.append(f"only {len(errs)} of {N_MANY} OPTIMAL")
+    wrong = {i: row for i, row in over.items() if not row["right"]}
+    if wrong:
+        problems.append(f"OPTIMAL lanes off their optimum: {wrong}")
+    emit(phase, ok=not problems, lps=N_MANY, m_range=list(M_MANY),
+         buckets=st.buckets, status=_status_counts(sols),
+         optimal_stage1=N_MANY - len(rescued),
+         rescued_optimal=sum(sols[i].optimal for i in rescued),
+         median_iterations=statistics.median(s.iterations for s in sols),
+         optimal_max_obj_rel_err=max(errs, default=None),
+         stage1_max_obj_rel_err=max(
+             (_rel(s.objective, g.obj_star) for i, (s, g)
+              in enumerate(zip(sols, gens)) if i not in rescued),
+             default=None),
+         over_limit=over, **st.split(), launches=launched)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
+def phase_resume(gen) -> dict:
+    """``obs.solve_with_snapshots`` on the ``solve/presolve`` LP without
+    presolve, a snapshot every SNAPSHOT_EVERY iterations written to disk
+    and resumed from it, against one uninterrupted ``solve``."""
+    phase = "resume"
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "resume.npz"
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    full = ipx_torch.solve(gen.c, gen.A, gen.b, presolve=False, device=DEV)
+    full_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    with Stages("_run_batch") as st:
+        sol = obs.solve_with_snapshots(gen.c, gen.A, gen.b,
+                                       every=SNAPSHOT_EVERY, path=str(path),
+                                       device=DEV)
+    launched = counts()
+    with np.load(path) as z:
+        snap_it = int(z["it"])
+    path.unlink()
+    err = _rel(sol.objective, full.objective)
+    problems = _launch_problems("resume", launched)
+    if not (sol.optimal and full.optimal):
+        problems.append(f"ended {sol.status_name} (uninterrupted "
+                        f"{full.status_name})")
+    if err > TOL_RESUME_OBJ:
+        problems.append(f"objective off the uninterrupted solve by {err:.3e}")
+    if not SNAPSHOT_EVERY < sol.iterations <= full.iterations \
+            + RESUME_EXTRA_ITERS or snap_it != sol.iterations:
+        problems.append(f"{sol.iterations} iterations resumed, "
+                        f"{full.iterations} uninterrupted, snapshot at "
+                        f"{snap_it}")
+    emit(phase, ok=not problems, m=M_ROWS, n=N_COLS, every=SNAPSHOT_EVERY,
+         status=sol.status_name, iterations=sol.iterations,
+         uninterrupted_iterations=full.iterations,
+         uninterrupted_s=round(full_s, 3), obj_rel_err=err,
+         obj_rel_err_constructed=_rel(sol.objective, gen.obj_star),
+         **st.split(), launches=launched)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
+def phase_cli() -> None:
+    """``python -m ipx_torch`` as a user runs it, in child processes on the
+    card with the CLI's defaults: an MPS fixture and a random LP at the
+    main path's width.  Exit 0, OPTIMAL, the objective against HiGHS and
+    the constructed optimum.  (The children's kernel launches are theirs,
+    not counted here.)"""
+    phase = "cli"
+    syn02 = ROOT / "tests" / "fixtures" / "syn02.mps"
+    runs = ((["solve", str(syn02), "--json", "--quiet"], _highs(
+                read_mps(str(syn02), use_native=False))),
+            (["random", "--m", str(M_ROWS), "--n", str(N_COLS), "--json",
+              "--quiet"], None))
+    rows, problems = [], []
+    for args, ref_obj in runs:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "ipx_torch", *args],
+                           capture_output=True, text=True, cwd=ROOT,
+                           timeout=CLI_TIMEOUT)
+        secs = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        res = json.loads(lines[-1]) if r.returncode == 0 and lines else {}
+        err = (None if not res
+               else _rel(res["objective"], ref_obj) if ref_obj is not None
+               else float(res["known_optimum_rel_err"]))
+        tol = TOL_GENERAL_OBJ if ref_obj is not None else TOL_CONSTRUCTED
+        rows.append(dict(args=args[:2], returncode=r.returncode,
+                         status=res.get("status"),
+                         iterations=res.get("iterations"), obj_rel_err=err,
+                         seconds=round(secs, 2)))
+        if r.returncode != 0 or res.get("status") != "OPTIMAL" \
+                or err is None or err > tol:
+            problems.append(f"{args[0]}: exit {r.returncode}, {res}, "
+                            f"stderr {r.stderr[-800:]}")
+    emit(phase, ok=not problems, runs=rows)
+    if problems:
+        fail(phase, "; ".join(problems))
+
+
 def timed(phase_fn, *args, name=None):
     """Run a phase and print the seconds it took on a line of its own."""
     t0 = time.perf_counter()
@@ -1998,6 +2498,17 @@ def main() -> int:
     timed(phase_oracle_f64, gb)
     timed(phase_single, gb, sols)
     timed(phase_rate, gb, card)
+    del gb, sols
+    torch.cuda.empty_cache()
+    # the problem layer and front ends, each path with its counts set to 0
+    # just before it and read just after
+    gen = random_feasible_lp(M_ROWS, N_COLS, seed=0)
+    by_path.update(timed(phase_presolve, gen, name="solve/presolve"))
+    by_path.update(timed(phase_general, name="solve_general"))
+    by_path["mps"] = timed(phase_mps, name="solve_mps")
+    by_path["many"] = timed(phase_many, name="solve_many")
+    by_path["resume"] = timed(phase_resume, gen, name="resume")
+    timed(phase_cli, name="cli")
 
     out = []
     for name, row in rows.items():

@@ -1,4 +1,5 @@
-"""Public API: solve / solve_batch -> Solution."""
+"""Public API: solve / solve_batch / solve_general / solve_mps /
+solve_many -> Solution."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,17 +9,29 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ipx_torch import obs
 from ipx_torch.ipm import batched, mehrotra
 from ipx_torch.ipm.state import IPMState
 from ipx_torch.numerics import dtype_of
 from ipx_torch.options import DEFAULT_OPTIONS, SolverOptions, check_ported
-from ipx_torch.problem.lp import LP, make_lp
+from ipx_torch.problem.batching import bucket_lps
+from ipx_torch.problem.lp import LP, GeneralLP, make_lp, to_standard_form
+from ipx_torch.problem.mps import read_mps
+from ipx_torch.problem.presolve import presolve as _presolve
 from ipx_torch.status import STATUS_NAMES, Status
 
 
 @dataclass
 class Solution:
-    """Host-side solve result (original problem units)."""
+    """Host-side solve result (original problem units).
+
+    For :func:`solve_general` / :func:`solve_mps`: ``y`` holds the duals of
+    the original rows, equality duals first then inequality duals
+    (``m_eq + m_ub`` entries, scipy sign convention: <=-row marginals are
+    <= 0 at optimality of a minimize problem); ``s = c - A_eq^T y_eq -
+    A_ub^T y_ub`` are reduced costs over the original variables; for
+    maximize problems all duals are reported in maximize sense.
+    """
 
     x: np.ndarray
     y: np.ndarray
@@ -245,30 +258,297 @@ def solve_batch(lps, options: Optional[SolverOptions] = None,
 
 
 def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
-          presolve: bool = True, device="cuda",
-          warm_start=None) -> Solution:
+          resume_from: Optional[str] = None,
+          checkpoint_to: Optional[str] = None,
+          presolve: bool = True,
+          warm_start=None, device="cuda") -> Solution:
     """Solve one standard-form LP ``min c@x s.t. A@x=b, x>=0`` on
     ``device``, as a batch of one.
 
     Accepts ``solve(lp)`` with an :class:`LP` or ``solve(c, A, b)`` with
-    array-likes.  ``presolve`` defaults to True as in ``ipx``; the host-side
-    presolve is not ported yet, so callers pass ``presolve=False``.
+    array-likes.
+
+    ``presolve=True`` (the default, like scipy.optimize.linprog) routes
+    through the host-side presolve (reductions, dependent-row elimination,
+    Ruiz equilibration) and postsolves back: raw real-world data needs the
+    equilibration to reach 1e-6 in f32.  ``presolve=False`` keeps the pure
+    device path for already-clean inputs (no host-side O(m^2 n) work).
+    ``resume_from`` / ``checkpoint_to`` / ``warm_start`` always use the
+    device path (their state lives in solver units).
+
+    ``resume_from`` continues from an :func:`ipx_torch.obs.save_state`
+    snapshot (one written by ``ipx`` too); ``checkpoint_to`` writes the
+    final state there (chunked solving: cap ``max_iter``, checkpoint,
+    resume).
 
     ``warm_start=(x, y, s)`` seeds the run from a previous, related
     solution, re-centered off the bounds (``mehrotra.warm_start_state``).
-    As in ``ipx`` it skips presolve and the rescue ladder.
+    As in ``ipx`` it skips presolve and the rescue ladder, as does
+    ``resume_from``.
     """
     opts = options or DEFAULT_OPTIONS
-    if presolve and warm_start is None:
-        raise NotImplementedError(
-            "presolve=True is not ported yet (ROADMAP.md: problem layer and "
-            "front ends); pass presolve=False")
+    if (presolve and resume_from is None and checkpoint_to is None
+            and warm_start is None):
+        return _solve_presolved(c, A, b, opts, device)
     lp = c if isinstance(c, LP) else make_lp(c, A, b, device=device)
     blp = _prepare([lp], opts, device)
-    if warm_start is not None:
+    if resume_from is not None:
+        state0 = obs.resume_state(obs.load_state(resume_from, device),
+                                  opts.max_iter)
+        st = _run_batch(blp, opts, state0)
+    elif warm_start is not None:
         x, y, s = (torch.as_tensor(v).reshape(1, -1) for v in warm_start)
         st = _run_batch(blp, opts,
                         mehrotra.warm_start_state(blp, x, y, s, opts))
     else:
         st = _maybe_augmented_fallback(blp, _run_batch(blp, opts), opts)
+    if checkpoint_to is not None:
+        obs.save_state(checkpoint_to, st)
     return _states_to_solutions(blp, st)[0]
+
+
+def _primal_polish(A, b, x, s, c=None, support_mask=None,
+                   max_m: int = 8192):
+    """Host-side f64 primal polish (crossover-lite, SURVEY.md §7 hard
+    part 1).
+
+    The f32 IPM's primal residual floors near eps*sqrt(n)*|x|; on
+    DEGENERATE instances with spread-out Ruiz scales the postsolved
+    objective error is ~|y| * ||Ax-b||, which can sit 2-4x above the
+    contract tolerance even when the rel-gap contract is met.  One f64
+    least-squares correction restricted to the estimated support
+    S = {x > s} (the complementarity partition) removes it: solve
+    A_S dx = b - A x, leaving off-support zeros untouched so no clipping
+    fights the projection.
+
+    Returns the polished x only when it strictly improves ||Ax-b||_inf,
+    keeps x >= 0, and moves the duality/complementarity gap by at most a
+    negligible amount: the polish changes x@s by exactly s_S @ dx_S, which
+    is ~0 for a CORRECT support (s_S ~ 0 by complementarity) and material
+    precisely when the support estimate is wrong (degenerate x_j ~ s_j).
+    ``support_mask`` excludes columns (e.g. presolve-fixed variables) from
+    the support regardless of x/s.  Otherwise the input x.  Skipped for
+    m > max_m (host lstsq cost)."""
+    if A.shape[0] > max_m:
+        return x
+    S = x > np.maximum(s, 0.0)
+    if support_mask is not None:
+        S = S & support_mask
+    if not S.any():
+        return x
+    r = b - A @ x
+    try:
+        dxS, *_ = np.linalg.lstsq(A[:, S], r, rcond=None)
+    except np.linalg.LinAlgError:
+        return x
+    xp = x.copy()
+    xp[S] = xp[S] + dxS
+    # tiny negatives from the correction are rounding; anything material
+    # means the support estimate was wrong — reject
+    if xp.min() < -1e-8 * (1.0 + float(np.abs(x).max())):
+        return x
+    xp = np.maximum(xp, 0.0)
+    if not (np.abs(A @ xp - b).max(initial=0.0) < np.abs(r).max(initial=0.0)):
+        return x
+    # complementarity-change guard (see docstring): |s_S @ dx_S| is the
+    # polish's exact x@s change; cap it at 1e-7 relative so an accepted
+    # polish can never move the reported rel_gap materially against the
+    # 1e-6 contract.  c only refines the normalization when available.
+    gap_move = abs(float(s[S] @ dxS))
+    denom = 1.0 + (abs(float(c @ x)) if c is not None else 0.0)
+    if gap_move > 1e-7 * denom:
+        return x
+    return xp
+
+
+def _empty_solution(x: np.ndarray, m: int, n_s: int, obj: float,
+                    status: int) -> Solution:
+    """The result of an LP that presolve settled alone: no iteration ran.
+    OPTIMAL (every variable fixed) reports zero gap and residuals, the
+    certificates infinite ones."""
+    done = 0.0 if status == int(Status.OPTIMAL) else np.inf
+    return Solution(x=x, y=np.zeros(m), s=np.zeros(n_s), objective=obj,
+                    dual_objective=obj, status=status, iterations=0,
+                    rel_gap=done, rp_rel=done, rd_rel=done,
+                    trace=np.zeros((0, 8)))
+
+
+_PRESOLVE_STATUS = {"infeasible": int(Status.PRIMAL_INFEASIBLE),
+                    "unbounded": int(Status.DUAL_INFEASIBLE),
+                    "ok": int(Status.OPTIMAL)}
+
+
+def _solve_reduced(pres, opts: SolverOptions, device) -> Solution:
+    """The presolved, scaled LP on ``device`` as a batch of one, with the
+    ladder; the result in solver units."""
+    lp = make_lp(pres.c, pres.A, pres.b, dtype=dtype_of(opts.dtype),
+                 device=device)
+    blp = _prepare([lp], opts, device)
+    st = _maybe_augmented_fallback(blp, _run_batch(blp, opts), opts)
+    return _states_to_solutions(blp, st)[0]
+
+
+def _solve_presolved(c, A, b, opts: SolverOptions, device) -> Solution:
+    """Standard-form solve through presolve + postsolve (host reductions,
+    dependent-row elimination, Ruiz scaling)."""
+    if isinstance(c, LP):
+        c, A, b = _host64(c.c), _host64(c.A), _host64(c.b)
+    else:
+        c = np.asarray(c, np.float64)
+        A = np.asarray(A, np.float64)
+        b = np.asarray(b, np.float64)
+    # bf16 A-storage composes with scaling only if every scale factor is a
+    # power of two (exact in binary FP); arbitrary Ruiz factors would round
+    # the scaled instance to bf16 while the reduced solve reports OPTIMAL
+    pres = _presolve(c, A, b, pow2_scales=(opts.a_storage == "bfloat16"))
+
+    if pres.status != "ok" or pres.A.size == 0 or pres.A.shape[0] == 0:
+        x = np.zeros(A.shape[1])
+        x[pres.fixed_mask] = pres.fixed_vals[pres.fixed_mask]
+        return _empty_solution(x, A.shape[0], A.shape[1], float(c @ x),
+                               _PRESOLVE_STATUS[pres.status])
+
+    red = _solve_reduced(pres, opts, device)
+    x = pres.postsolve_x(red.x)
+    y = pres.postsolve_y(red.y)
+    s = c - A.T @ y
+    if red.optimal:
+        x = _primal_polish(A, b, x, s, c=c, support_mask=~pres.fixed_mask)
+    pobj = float(c @ x)
+    rp_rel = float(np.abs(A @ x - b).max(initial=0.0)
+                   / (1 + np.abs(b).max(initial=0.0)))
+    rd_rel = float(np.maximum(-s, 0).max(initial=0.0)
+                   / (1 + np.abs(c).max(initial=0.0)))
+    # rel_gap stays the REDUCED (Ruiz-scaled) problem's complementarity gap,
+    # the solver's convergence metric: x@s in original units can exceed tol
+    # on degenerate instances (unscaling amplifies x_j s_j cross terms) even
+    # when the certified solve met the contract.  The polish cannot move it
+    # materially: its complementarity-change guard caps what it may change.
+    return Solution(
+        x=x, y=y, s=s, objective=pobj, dual_objective=float(b @ y),
+        status=red.status, iterations=red.iterations, rel_gap=red.rel_gap,
+        rp_rel=rp_rel, rd_rel=rd_rel, trace=red.trace)
+
+
+def solve_general(glp, options: Optional[SolverOptions] = None,
+                  device="cuda") -> Solution:
+    """Solve a :class:`GeneralLP` (inequalities + bounds) end to end.
+
+    Host pipeline: standard-form conversion -> presolve + Ruiz
+    equilibration -> IPM solve on ``device`` of the scaled reduced problem
+    -> postsolve back to original variables and units.  This is the path
+    BASELINE config 2 (Netlib-style suite) exercises.
+    """
+    opts = options or DEFAULT_OPTIONS
+    if not isinstance(glp, GeneralLP):
+        raise TypeError(f"solve_general expects GeneralLP, got {type(glp)}")
+
+    c_s, A_s, b_s, _, post = to_standard_form(glp)
+    pres = _presolve(c_s, A_s, b_s,
+                     pow2_scales=(opts.a_storage == "bfloat16"))
+    off = float(getattr(glp, "obj_offset", 0.0))
+    maximize = bool(getattr(glp, "maximize", False))
+
+    if pres.status != "ok" or pres.A.size == 0 or pres.A.shape[0] == 0:
+        # a certificate from presolve, or every variable fixed
+        z = np.zeros(post.n_std)
+        z[pres.fixed_mask] = pres.fixed_vals[pres.fixed_mask]
+        x = post.x_orig(z)
+        obj = float(np.asarray(glp.c) @ x) + off
+        return _empty_solution(x, glp.A_eq.shape[0] + glp.A_ub.shape[0],
+                               glp.n, -obj if maximize else obj,
+                               _PRESOLVE_STATUS[pres.status])
+
+    red = _solve_reduced(pres, opts, device)
+
+    # postsolve: scaled-reduced -> std-form z and duals -> original x
+    z = pres.postsolve_x(red.x)
+    y_std = pres.postsolve_y(red.y)
+    if red.optimal:
+        # f64 support-restricted primal polish on the std-form triple
+        s_std = c_s - A_s.T @ y_std
+        z = _primal_polish(A_s, b_s, z, s_std, c=c_s,
+                           support_mask=~pres.fixed_mask)
+    x = post.x_orig(z)
+
+    # duals in ORIGINAL problem units: std-form rows are [A_eq | A_ub |
+    # appended bound rows]; bound-row duals are dropped from y (their
+    # contribution stays in the dual objective via b_s@y_std), and reduced
+    # costs are recomputed against the original gradient.
+    m_eq = glp.A_eq.shape[0]
+    m_ub = glp.A_ub.shape[0]
+    y = y_std[:m_eq + m_ub].copy()
+    s = glp.c - glp.A_eq.T @ y[:m_eq] - glp.A_ub.T @ y[m_eq:]
+    obj = float(np.asarray(glp.c) @ x) + off
+    # std form: min c_s@z + conv_offset, A_s z = b_s  =>  dual obj in
+    # original (minimize) units is b_s@y + conv_offset (+ file constant)
+    dual_obj = float(b_s @ y_std) + post.obj_offset + off
+    if maximize:
+        obj, dual_obj = -obj, -dual_obj
+        y, s = -y, -s
+    return Solution(
+        x=x, y=y, s=s,
+        objective=obj, dual_objective=dual_obj,
+        status=red.status, iterations=red.iterations,
+        rel_gap=red.rel_gap, rp_rel=red.rp_rel, rd_rel=red.rd_rel,
+        trace=red.trace)
+
+
+def solve_mps(path: str, options: Optional[SolverOptions] = None,
+              device="cuda") -> Solution:
+    """Read an MPS file and solve it on ``device``."""
+    return solve_general(read_mps(path), options, device)
+
+
+def solve_many(problems, options: Optional[SolverOptions] = None,
+               m_multiple: int = 32, n_multiple: int = 64,
+               device="cuda") -> list:
+    """Solve a MIXED-SIZE collection of standard-form LPs.
+
+    ``problems`` is a sequence of ``(c, A, b)`` triples or :class:`LP`
+    objects of arbitrary (m, n).  Instances are grouped into geometric shape
+    buckets (``ipx_torch/problem/batching.py``), padded solution-invariantly
+    on the host, each bucket moved to ``device`` whole and solved as one
+    batch by :func:`solve_batch`, unpadded, and returned as a list of
+    :class:`Solution` in input order.
+    """
+    opts = options or DEFAULT_OPTIONS
+    probs = []
+    for p in problems:
+        if isinstance(p, LP):
+            probs.append((_host64(p.c), _host64(p.A), _host64(p.b)))
+        else:
+            probs.append(tuple(np.asarray(v, np.float64) for v in p))
+
+    dtype = dtype_of(opts.dtype)
+    out: list = [None] * len(probs)
+    for shape, items in sorted(bucket_lps(probs, m_multiple,
+                                          n_multiple).items()):
+        def stack(field):
+            return torch.as_tensor(
+                np.stack([getattr(pad, field) for _, pad in items]),
+                dtype=dtype).to(device)
+        blp = LP(c=stack("c"), A=stack("A"), b=stack("b"),
+                 obj_offset=torch.zeros(len(items), dtype=dtype,
+                                        device=device))
+        sols = solve_batch(blp, options=opts, device=device)
+        for (idx, padded), sol in zip(items, sols):
+            c, A, b = probs[idx]
+            # strip padding and re-derive every reported quantity from the
+            # ORIGINAL problem: the padded dead columns carry c_j = 1 and
+            # x_j ~ mu, which must not leak into the objective
+            x = padded.unpad_x(sol.x)
+            y = padded.unpad_y(sol.y)
+            s = sol.s[: padded.n_orig]
+            pobj = float(c @ x)
+            out[idx] = Solution(
+                x=x, y=y, s=s,
+                objective=pobj, dual_objective=float(b @ y),
+                status=sol.status, iterations=sol.iterations,
+                rel_gap=float(abs(x @ s) / (1 + abs(pobj))),
+                rp_rel=float(np.abs(A @ x - b).max(initial=0.0)
+                             / (1 + np.abs(b).max(initial=0.0))),
+                rd_rel=float(np.abs(A.T @ y + s - c).max(initial=0.0)
+                             / (1 + np.abs(c).max(initial=0.0))),
+                trace=sol.trace)
+    return out

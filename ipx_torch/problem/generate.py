@@ -4,6 +4,8 @@ Sample a strictly complementary primal-dual pair (x*, y*, s*) and construct
 (b, c) from it, so the optimal objective c@x* is known by construction and
 serves as a test oracle.  ``random_feasible_lp`` is the host (numpy) form;
 ``random_feasible_batch_device`` makes a whole batch on the device.
+``random_general_lp`` makes a general LP (inequalities, bounds, free
+variables) that is feasible and bounded by construction.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ipx_torch.problem.lp import LP
+from ipx_torch.problem.lp import LP, GeneralLP
 
 
 @dataclass
@@ -68,6 +70,54 @@ def random_feasible_lp(
     obj_star = float(c @ x_star)
     return GeneratedLP(c=c, A=A, b=b, x_star=x_star, y_star=y_star,
                        s_star=s_star, obj_star=obj_star)
+
+
+def random_general_lp(seed: int = 0, n: int = 40, m_eq: int = 8,
+                      m_ub: int = 20, n_free: int = 2,
+                      scale_spread: float = 0.0):
+    """Netlib-style general LP: inequalities + equalities + finite bounds +
+    a few free variables, feasible and bounded by construction.
+
+    Used as the in-repo stand-in for BASELINE config 2's "Netlib-style suite
+    of 20 small/medium LPs" (real Netlib files can be fed through
+    ipx_torch.solve_mps; the tests need self-contained instances).
+
+    Construction: bounded variables get finite [lb, ub] (=> bounded LP);
+    an interior point x0 gives feasible rhs.  Each free variable is pinned by
+    one extra equality  f - a @ x_bounded = r  so it stays bounded while
+    exercising the free-variable split in to_standard_form.
+    """
+    rng = np.random.default_rng(seed)
+    nb = n - n_free
+    lb = rng.uniform(-5.0, 0.0, nb)
+    ub = lb + rng.uniform(1.0, 10.0, nb)
+    x0b = lb + (ub - lb) * rng.uniform(0.2, 0.8, nb)
+
+    A_eq_b = rng.standard_normal((m_eq, nb))
+    A_ub_b = rng.standard_normal((m_ub, nb))
+    if scale_spread > 0:
+        A_eq_b *= 10.0 ** rng.uniform(-scale_spread, scale_spread, (m_eq, 1))
+        A_ub_b *= 10.0 ** rng.uniform(-scale_spread, scale_spread, (m_ub, 1))
+
+    # pin each free var with one equality  f_k - a_k @ x_b = r_k
+    pin = rng.standard_normal((n_free, nb))
+    f0 = pin @ x0b + rng.standard_normal(n_free)
+
+    A_eq = np.zeros((m_eq + n_free, n))
+    A_eq[:m_eq, :nb] = A_eq_b
+    A_eq[m_eq:, :nb] = -pin
+    A_eq[m_eq:, nb:] = np.eye(n_free)
+    b_eq = np.concatenate([A_eq_b @ x0b, f0 - pin @ x0b])
+
+    A_ub = np.zeros((m_ub, n))
+    A_ub[:, :nb] = A_ub_b
+    b_ub = A_ub_b @ x0b + rng.uniform(0.1, 2.0, m_ub)
+
+    c = rng.standard_normal(n)
+    lbv = np.concatenate([lb, np.full(n_free, -np.inf)])
+    ubv = np.concatenate([ub, np.full(n_free, np.inf)])
+    return GeneralLP(c=c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq,
+                     lb=lbv, ub=ubv, name=f"synth{seed}")
 
 
 @dataclass

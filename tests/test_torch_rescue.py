@@ -413,8 +413,12 @@ def test_sharded_routes_still_refused(linsys):
 
 
 def test_presolve_refused_unless_warm_start():
-    with pytest.raises(NotImplementedError, match="presolve"):
-        ipx_torch.solve(_tiny_lp(), device="cpu")
+    """The default presolve=True solves (it was refused before the problem
+    layer was carried); a warm start skips presolve, as in ``ipx``.  The
+    name is the earlier contract's, kept so that the test's history reads
+    on under one name."""
+    pre = ipx_torch.solve(_tiny_lp(), device="cpu")
+    assert pre.optimal and abs(pre.objective - 1.0) <= 1e-5
     cold = ipx_torch.solve(_tiny_lp(), presolve=False, device="cpu")
     warm = ipx_torch.solve(_tiny_lp(), device="cpu",
                            warm_start=(cold.x, cold.y, cold.s))
