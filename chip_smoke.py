@@ -29,14 +29,23 @@ fixed-iteration rate of three factor routes, and the front ends:
 width, ``solve_general`` on a general LP of 1536 x 2432 in standard form
 against HiGHS (also with A rounded to bf16 values and stored bf16),
 ``solve_mps`` on the committed fixtures, ``solve_many`` on mixed sizes, a
-chunked solve resumed from its on-disk snapshots, and ``python -m
-ipx_torch`` in child processes.
+chunked solve resumed from its on-disk snapshots, ``python -m ipx_torch``
+in child processes, and the large single LP through ``ipx_torch.solve_large``:
+at m=2048 under a one-rank NCCL group (with config 5's batch-sharded
+``solve_batch`` driven as a caller drives it), the ``"sharded_schur"``
+endgame forced at m=4096, an f32 A at m=8192 chunked and not, and config 4
+whole (m=32768, n=65536, bf16 A), with row 10 held past the pair-solve's m,
+row 4's far-corner tiles against f64 beside the summations the limit
+rejects, and, on each of these four paths, rows 4 and 10 held on the first
+and the last normal matrix the path built against their plain versions and
+float64.
 Every phase prints one JSON line, and a line with its seconds; any failure
 exits non-zero.  Needs a CUDA
 device: without one it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import statistics
@@ -62,9 +71,11 @@ from ipx_torch.ipm import batched
 from ipx_torch.kernels import _build
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import augmented, normal_eq
+from ipx_torch import mesh as meshlib
+from ipx_torch.linsys import augmented, normal_eq, schur
 from ipx_torch.numerics import dtype_of
 from ipx_torch.problem.generate import (lp_from_optimum,
+                                        random_feasible_large_device,
                                         random_feasible_batch_device,
                                         random_feasible_lp,
                                         random_general_lp)
@@ -198,6 +209,31 @@ N_LADDER_TRIES = 4  # stalled lanes tried alone until one drives the ladder
 B_PADDED = 16       # batch of the padded path
 M_PADDED = 1000     # its m, off the 128 grid
 
+# the large single LP (config 4, BASELINE.json "Large single LP (m=32k,
+# n=64k)"), solved whole on one card at p = 1, and the smaller shapes of its
+# other paths: an f32 A (row 4's float32 kernel), the Schur-form endgame
+# forced, a one-rank NCCL group; row 10 alone past MAX_M
+M_LARGE, N_LARGE = 32768, 65536
+M_LARGE_F32 = 8192
+M_SCHUR = 4096
+M_GROUP = 2048
+M_ROW10 = 8192
+LARGE_OBJ_TOL = 1e-5        # objective against the constructed optimum
+# Row 4 against f64 on the large LPs' shapes: config 4's far-corner tiles,
+# relative to each tile's largest entry [1.29e-6, 1.12e-6, 1.09e-6 first,
+# last, corner on an H100], and the whole M of the path's first and last
+# normal matrix, each entry over sqrt(D_i D_j) [1.91e-6, 1.70e-6 at config
+# 4; at most 1.09e-6 on the smaller shapes].  n = 65536 is 1024 chunk sums
+# an entry where the contract's n is 32, so TOL_F64 is not the limit.  The
+# limit rejects what the summation rule rejects, measured on the same rows
+# in the same run (``_far_corners``, which fails if it would not): one
+# float32 chain an entry [1.63e-5], A o d2 rounded once to bf16 [1.43e-3];
+# the plain version, one library f32 product, was 6.28e-5 off on the whole M.
+# An offset that overflowed would be off by O(1).
+TOL_LARGE_F64 = 5e-6
+LARGE_CHUNK = 8             # exec_chunk_iters of the chunked f32 run
+_LARGE = ("assemble_sym_batched", "factor_lt_batched", "diag_factor_inv")
+
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "ata_apply": ("ipx_torch/csrc/fused_matvec.cu", "ipx/kernels/fused.py:80"),
@@ -273,6 +309,13 @@ PATH_KERNELS = {
     "mps": ("assemble_sym_batched",),
     "many": _F32,
     "resume": ("assemble_sym_batched",),
+    # the large single LP at p = 1: the assembly kernel on the whole A, the
+    # full-matrix factor (row 10 with the diagonal kernel), the solves
+    # W-substitutions with library products (past the pair-solve's m)
+    "large": _LARGE,
+    "large_f32": _LARGE,
+    "sharded_schur": _LARGE,
+    "large_group": _LARGE,
 }
 # the library calls a path may make: the factor and triangular solve of the
 # library route, which the kernel paths must not make, and the LU route's
@@ -517,8 +560,7 @@ def _matvec_work(B: int, itemsize: int) -> dict:
         # one product (2 flops) per entry and column of A.  (The kernel's 128
         # tiles compute whole diagonal tiles, m (m + 128) / 2 entries; that
         # surplus is the kernel's, not the function's.)
-        "assemble_sym_batched": (a_bytes + vec(n) + 4 * B * m * m, 0,
-                                 2 * B * (m * (m + 1) // 2) * n),
+        "assemble_sym_batched": _assembly_work(B, m, n, itemsize),
     }
 
 
@@ -883,9 +925,26 @@ def _panel_work(B: int) -> dict:
         "solve_triangular_batched": (factor_io + 2 * 4 * B * m,
                                      2 * (factor_io // 4), 0, 0),
         # the block lower triangle of M in, of the factor out, and W
-        "cholesky_batched": (2 * panels + w_out, 0, 0, 2 * B * chol),
-        "factor_lt_batched": (2 * panels + w_out, 0, 0, 2 * B * chol),
+        "cholesky_batched": _lt_factor_work(B, m),
+        "factor_lt_batched": _lt_factor_work(B, m),
     }
+
+
+def _assembly_work(B: int, m: int, n: int, itemsize: int) -> tuple:
+    """Row 4's work at (B, m, n) as ``_matvec_work`` counts it: A and d2 in,
+    M out; one product a lower-triangle entry and column of A."""
+    return (B * m * n * itemsize + 4 * B * n + 4 * B * m * m, 0,
+            2 * B * (m * (m + 1) // 2) * n)
+
+
+def _lt_factor_work(B: int, m: int) -> tuple:
+    """Row 10's work at (B, m) as ``_panel_work`` counts it: the block lower
+    triangle of M in, of L^T out, W out; a Cholesky factor and the inverses
+    of its diagonal blocks on the tensor cores."""
+    nb = m // NB
+    panels = 4 * B * m * (m + NB) // 2
+    chol = m ** 3 // 6 + nb * NB ** 3 // 6
+    return (2 * panels + 4 * B * nb * NB * NB, 0, 0, 2 * B * chol)
 
 
 def _lt_own_work(B: int) -> dict:
@@ -1145,8 +1204,10 @@ def _lanes_bitwise(phase, name, call, args, full) -> None:
 
 def _limit_checks(checks) -> str | None:
     """m = MAX_M is taken by all four kernels (one instance, factor then
-    solve), m = MAX_M + 128 refused by each wrapper and by ``normal_eq.factor``
-    before any factor work.  Returns what went wrong, or None."""
+    solve), m = MAX_M + 128 refused by each wrapper but the full-matrix
+    factor ``factor_lt_batched`` (which takes it: ``_large_m_factor``) and by
+    ``normal_eq.factor`` before any factor work.  Returns what went wrong, or
+    None."""
     m = pk.MAX_M
     g = torch.Generator(device=DEV).manual_seed(5)
     G = torch.randn(1, m, m, generator=g, device=DEV) / m ** 0.5
@@ -1174,7 +1235,6 @@ def _limit_checks(checks) -> str | None:
     before = counts()
     attempts = {
         "cholesky_batched": lambda: pk.cholesky_batched(Z),
-        "factor_lt_batched": lambda: pk.factor_lt_batched(Z),
         "chol_solve_batched_lt": lambda: pk.chol_solve_batched_lt(Z, Wz, bz),
         "solve_triangular_batched":
             lambda: pk.solve_triangular_batched(Z, Wz, bz),
@@ -1331,6 +1391,56 @@ def _lt_own_ms(Ms) -> dict:
     return out
 
 
+def _large_m_factor(rows: dict) -> None:
+    """Row 10 at B = 1 and m = M_ROW10, past MAX_M (the large single LP's
+    factor): against its plain version and the f64 factor with the panel
+    factors' limits, its backward error, its time beside its bound; the
+    pair-solve still refuses that m, launching nothing."""
+    phase, m = "lt_kernels", M_ROW10
+    g = torch.Generator(device=DEV).manual_seed(6)
+    G = torch.randn(1, m, m, generator=g, device=DEV) / m ** 0.5
+    M = torch.matmul(G, G.mT)
+    M.diagonal(dim1=1, dim2=2).add_(1.0)
+    del G
+    LT, W = pk.factor_lt_batched(M)
+    LTp, _ = pk.factor_lt_batched_plain(M)
+    M64 = M.double()
+    L64 = torch.linalg.cholesky(M64)
+    LT64 = LT.double()
+    top = _mx(L64)
+    res = {"m": m, "batch": 1,
+           "vs_f64": _mx(LT64 - L64.mT) / top,
+           "vs_plain": _mx(LT - LTp) / top,
+           "backward": _mx(torch.matmul(LT64.mT, LT64) - M64) / _mx(M64)}
+    Lkk = torch.stack([LT64[0, o:o + NB, o:o + NB].mT
+                       for o in range(0, m, NB)])
+    res["w_inverse"] = _mx(torch.matmul(W[0].double(), Lkk)
+                           - torch.eye(NB, device=DEV, dtype=torch.float64))
+    del M64, L64, LT64, LTp
+    if not (res["vs_f64"] <= TOL_PANELS_F64 and res["vs_plain"] <= TOL_LT_PLAIN
+            and res["backward"] <= TOL_RECONSTRUCT
+            and res["w_inverse"] <= TOL_DIAG_INVERSE):
+        fail(phase, f"factor_lt_batched at m={m}: {res}")
+    before = counts()
+    try:
+        pk.chol_solve_batched_lt(LT, W, torch.zeros(1, m, device=DEV))
+    except ValueError:
+        res["pair_solve_refuses"] = True
+    else:
+        fail(phase, f"chol_solve_batched_lt took m={m}")
+    if counts() != before:
+        fail(phase, f"a refused m={m} launched")
+    res["ms"] = time_ms(lambda: pk.factor_lt_batched(M), reps=3, warm=1)
+    res["plain_ms"] = time_ms(lambda: pk.factor_lt_batched_plain(M), reps=2,
+                              warm=1)
+    res["library_ms"] = time_ms(
+        lambda: torch.linalg.cholesky_ex(M, check_errors=False), reps=3, warm=1)
+    res.update(_bound(*_lt_factor_work(1, m)))
+    rows["factor_lt_batched"][f"m{m}_b1"] = res
+    del M, LT, W
+    torch.cuda.empty_cache()
+
+
 def phase_lt_kernels(rows: dict) -> None:
     """The four kernels over a full (B, m, m) matrix against their plain
     versions and f64 oracles at B_CHECK on the panel kernels' ill-conditioned
@@ -1468,6 +1578,7 @@ def phase_lt_kernels(rows: dict) -> None:
     wrong = _limit_checks(checks)
     if wrong:
         fail(phase, wrong)
+    _large_m_factor(rows)
     # a tensor-core sum of one sign shows a bias on the diagonal: rows 5's
     # and 7's start tiles against f64 (row 9's update:
     # probes/assembly_error.py)
@@ -2440,6 +2551,532 @@ def phase_cli() -> None:
         fail(phase, "; ".join(problems))
 
 
+class SplitTimer:
+    """While active, wraps the pieces of a ``solve_large`` iteration and sums
+    each one's seconds, synchronised before and after: the Jacobi diagonal,
+    the assembly (row 4), the factor (row 10 with the diagonal kernel), the
+    preconditioner's solves (W-substitutions) and the library products (in
+    float32 sums on ``"sharded"``, float64 on ``"sharded_schur"``).  What is
+    left of the solve's seconds is the elementwise work, the collectives and
+    the host.  A piece missing from its module raises on entry, and
+    :meth:`never_called` names the pieces a run's stages must have called
+    and did not, so a renamed piece cannot report zero seconds."""
+
+    PIECES = {"jacobi": (schur, "_diag_scan"),
+              "assembly": (pk, "assemble_sym_batched"),
+              "factor": (pk, "factor_lt_batched"),
+              "solves": (schur, "_precond"),
+              "products": (schur, "mv"),
+              "products_f64": (schur, "mv64")}
+    # the pieces each stage's route calls
+    ROUTE = {"sharded": ("jacobi", "assembly", "factor", "solves",
+                         "products"),
+             "sharded_schur": ("jacobi", "assembly", "factor", "solves",
+                               "products_f64")}
+
+    def __enter__(self):
+        self.seconds = dict.fromkeys(self.PIECES, 0.0)
+        self.calls = dict.fromkeys(self.PIECES, 0)
+        self._orig = {}
+        for label, (mod, name) in self.PIECES.items():
+            fn = getattr(mod, name)     # AttributeError for a renamed piece
+            self._orig[label] = fn
+
+            def timed_call(*a, _fn=fn, _label=label, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                self.calls[_label] += 1
+                return out
+            setattr(mod, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, name) in self.PIECES.items():
+            setattr(mod, name, self._orig[label])
+
+    def never_called(self, routes) -> list:
+        want = {k for r in routes for k in self.ROUTE[r]}
+        return sorted(k for k in want if self.calls[k] == 0)
+
+
+class FactorCalls:
+    """While active, keeps the arguments of the first and the last
+    ``schur.factor`` call (A by reference, d2 and reg_scale copied): what
+    the path built its normal matrices from, for :func:`_replay_factor`."""
+
+    def __enter__(self):
+        self.calls = {}
+        self._orig = schur.factor
+
+        def keep(A, d2, opts, reg_scale=1.0):
+            rs = reg_scale.clone() if torch.is_tensor(reg_scale) else reg_scale
+            rec = (A, d2.clone(), opts, rs)
+            self.calls.setdefault("first", rec)
+            self.calls["last"] = rec
+            return self._orig(A, d2, opts, reg_scale)
+        schur.factor = keep
+        return self
+
+    def __exit__(self, *exc):
+        schur.factor = self._orig
+
+
+def _replay_factor(rec, mesh) -> dict:
+    """One recorded ``schur.factor`` call made again through the path's own
+    code, on the mesh it ran on: row 4's inputs and output (copied before
+    the path scales it in place) and row 10's input (the scaled,
+    regularized matrix) and output.  The kernels are deterministic, so these
+    are the bits the path computed."""
+    got = {}
+    asm, fac = pk.assemble_sym_batched, pk.factor_lt_batched
+
+    def asm_keep(A, d2):
+        M = asm(A, d2)
+        got["asm"] = (A, d2, M.clone())
+        return M
+
+    def fac_keep(M):
+        LT, W = fac(M)
+        got["factor"] = (M, LT, W)
+        return LT, W
+
+    pk.assemble_sym_batched, pk.factor_lt_batched = asm_keep, fac_keep
+    try:
+        with schur.use_mesh(mesh or meshlib.make_mesh(batch=1, row=1)):
+            schur.factor(*rec)
+    finally:
+        pk.assemble_sym_batched, pk.factor_lt_batched = asm, fac
+    if set(got) != {"asm", "factor"}:
+        fail("large", f"the replayed factor did not reach rows 4 and 10: "
+             f"{sorted(got)}")
+    return got
+
+
+def _event_ms(fn):
+    """(fn(), its device time in ms between two CUDA events): one call."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _hold_assembly(A3, d2, M, timing: bool) -> dict:
+    """Row 4's output M (1, m, m) on the path's own inputs against its plain
+    version and against float64, every tile of the lower triangle (the f64
+    product formed TB rows by TB columns at a time).  Each difference is
+    taken over sqrt(D_i D_j), D the f64 diagonal: |sum d2 a_i a_j| is at
+    most that, so the reading is the entries' relative summation error and
+    the same for every scale of d2.  With ``timing`` the plain version's
+    call and one library product are timed."""
+    m, n = A3.shape[1:]
+    A, d64 = A3[0], d2[0].double()
+    tb = min(m, 4096)
+    res = {"m": m, "n": n, "a_dtype": str(A.dtype),
+           "symmetric_bitwise": bool(torch.equal(M[0], M[0].mT))}
+    P, plain_ms = _event_ms(lambda: pk.assemble_sym_batched_plain(A3, d2))
+    if timing:
+        res["plain_ms"] = plain_ms
+        Af = A3.float()
+        Wf = Af * d2.unsqueeze(1)
+        res["library_ms"] = time_ms(lambda: torch.matmul(Wf, Af.mT), reps=1,
+                                    warm=1)
+        del Af, Wf
+    D = torch.cat([(A[r:r + tb].double() ** 2) @ d64
+                   for r in range(0, m, tb)])
+    s = torch.rsqrt(D)
+    err = dict.fromkeys(("vs_f64", "plain_vs_f64", "vs_plain"), 0.0)
+    for r in range(0, m, tb):
+        Ar = A[r:r + tb].double() * d64
+        for c in range(0, r + tb, tb):
+            T = Ar @ A[c:c + tb].double().mT
+            sc = s[r:r + tb, None] * s[None, c:c + tb]
+            got = M[0, r:r + tb, c:c + tb].double()
+            pl = P[0, r:r + tb, c:c + tb].double()
+            for k, v in (("vs_f64", _mx((got - T) * sc)),
+                         ("plain_vs_f64", _mx((pl - T) * sc)),
+                         ("vs_plain", _mx((got - pl) * sc))):
+                err[k] = max(err[k], v)
+        del Ar
+    res.update(err)
+    del P
+    torch.cuda.empty_cache()
+    return res
+
+
+def _backward(LT, M64, tb: int) -> float:
+    """||L L^T - M|| / ||M|| (max norms) in float64, LT (m, m) = L^T."""
+    LT64 = LT.double()
+    return max(_mx(LT64[:, r:r + tb].mT @ LT64 - M64[r:r + tb])
+               for r in range(0, LT.shape[0], tb)) / _mx(M64)
+
+
+def _hold_factor(M, LT, W, timing: bool) -> dict:
+    """Row 10's output (LT, W) on the matrix the path gave it (M (1, m, m),
+    scaled and regularized): its backward error ||L L^T - M|| / ||M|| in
+    float64 and ||W_k L_kk - I||, which do not grow with M's condition, and
+    its distance from the plain version's factor and from the float64
+    Cholesky of M, relative to the f64 factor's largest entry, which do.
+    Beside them the plain version's backward and forward errors and the
+    library float32 Cholesky's forward error.  Where M, rounded to float32,
+    is not positive definite in float64 (``f64_not_pd_at``, the failing
+    minor), the forward readings are None.  With ``timing`` the plain
+    version's call and the library Cholesky are timed."""
+    m = M.shape[-1]
+    tb = min(m, 4096)
+    res = {"m": m, "finite": bool(torch.isfinite(LT).all()
+                                  and torch.isfinite(W).all())}
+    (LTp, _), plain_ms = _event_ms(lambda: pk.factor_lt_batched_plain(M))
+    if timing:
+        res["plain_ms"] = plain_ms
+        res["library_ms"] = time_ms(
+            lambda: torch.linalg.cholesky_ex(M, check_errors=False), reps=1,
+            warm=1)
+    M64 = M[0].double()
+    L64, info = torch.linalg.cholesky_ex(M64)
+    res["f64_not_pd_at"] = int(info) or None
+    res.update(vs_f64=None, plain_vs_f64=None, library_vs_f64=None,
+               vs_plain=None)
+    if not int(info):
+        top = _mx(L64)
+
+        def fwd(X, lower=False) -> float:
+            return max(_mx((X[r:r + tb].mT if lower else X[r:r + tb])
+                           .double() - L64[:, r:r + tb].mT)
+                       for r in range(0, m, tb)) / top
+        res["vs_f64"] = fwd(LT[0])
+        res["plain_vs_f64"] = fwd(LTp[0])
+        Llib = torch.linalg.cholesky_ex(M[0])[0]
+        res["library_vs_f64"] = fwd(Llib.mT.contiguous())
+        del Llib
+        res["vs_plain"] = max(_mx(LT[0, r:r + tb] - LTp[0, r:r + tb])
+                              for r in range(0, m, tb)) / top
+    del L64
+    res["backward"] = _backward(LT[0], M64, tb)
+    res["plain_backward"] = _backward(LTp[0], M64, tb)
+    del M64, LTp
+    LT64 = LT[0].double()
+    Lkk = torch.stack([LT64[o:o + NB, o:o + NB].mT for o in range(0, m, NB)])
+    res["w_inverse"] = _mx(torch.matmul(W[0].double(), Lkk)
+                           - torch.eye(NB, device=DEV, dtype=torch.float64))
+    del LT64, Lkk
+    torch.cuda.empty_cache()
+    return res
+
+
+def _hold_path(phase: str, calls: dict, mesh, timing: bool = False) -> tuple:
+    """Rows 4 and 10 held on the first and the last normal matrix of a
+    ``solve_large`` run (replayed, :func:`_replay_factor`) -> (readings,
+    problems).  Launches made here come after the path's counts were read."""
+    out, problems = {}, []
+    for when, rec in calls.items():
+        got = _replay_factor(rec, mesh)
+        asm = _hold_assembly(*got.pop("asm"), timing=timing and when == "last")
+        fac = _hold_factor(*got.pop("factor"),
+                           timing=timing and when == "last")
+        del got
+        out[when] = {"assemble_sym_batched": asm, "factor_lt_batched": fac}
+        if not (asm["symmetric_bitwise"] and asm["vs_f64"] <= TOL_LARGE_F64
+                and asm["vs_plain"] <= asm["plain_vs_f64"] + TOL_LARGE_F64):
+            problems.append(f"{phase}: assemble_sym_batched on the {when} "
+                            f"matrix: {asm}")
+        # The first matrix is held to the full-matrix factors' limits
+        # whole.  The last one, once d2 spans many decades, is
+        # ill-conditioned: its f32 factors' forward errors are its condition
+        # times eps (the plain version's and the library's are printed
+        # beside the kernel's; at config 4 it is not even positive definite
+        # in f64), so it is held to the limits that do not grow with the
+        # condition, the backward error and ||W L - I|| (the latter with
+        # the ill-conditioned block's limit).
+        if when == "first":
+            ok = (fac["vs_f64"] is not None
+                  and fac["vs_f64"] <= TOL_PANELS_F64
+                  and fac["vs_plain"] <= TOL_LT_PLAIN
+                  and fac["w_inverse"] <= TOL_DIAG_INVERSE)
+        else:
+            ok = fac["w_inverse"] <= TOL_DIAG_INVERSE_ILL
+        if not (ok and fac["finite"] and fac["backward"] <= TOL_RECONSTRUCT):
+            problems.append(f"{phase}: factor_lt_batched on the {when} "
+                            f"matrix: {fac}")
+    return out, problems
+
+
+def _far_corners(A: torch.Tensor) -> dict:
+    """Row 4 on the large LP's A (m, n) against float64: the first and the
+    last 128-row blocks' diagonal tiles and the tile where they meet (the
+    far corner of the lower triangle, past 2^31 entries of M at config 4),
+    each from those rows of A alone, relative to each f64 tile's largest
+    entry; the mirror tile bit for bit the corner's transpose.  Beside it,
+    on the same rows, the forms the summation rule rejects, each read the
+    same way: one float32 chain an entry (``rejected_one_chain_f32``), A o
+    d2 rounded once to bf16 and summed exactly (``rejected_one_pass_bf16``,
+    the least error of a one-pass split), and one library float32 product
+    (``library_f32``, printed only)."""
+    m, n = A.shape
+    g = torch.Generator(device=DEV).manual_seed(8)
+    d2 = 0.5 + torch.rand(1, n, generator=g, device=DEV)
+    M = pk.assemble_sym_batched(A.unsqueeze(0), d2)[0]
+    R = torch.cat([A[:NB], A[-NB:]])
+    R64 = R.double()
+    T = torch.matmul(R64 * d2[0].double(), R64.mT)
+
+    def tiles(X) -> float:
+        X = X.double()
+        return max(_mx(X[a] - T[a]) / _mx(T[a]) for a in (
+            (slice(0, NB), slice(0, NB)), (slice(NB, None), slice(NB, None)),
+            (slice(NB, None), slice(0, NB))))
+
+    out = {k: _mx(got.double() - ref) / _mx(ref) for k, (got, ref) in {
+        "first": (M[:NB, :NB], T[:NB, :NB]),
+        "last": (M[-NB:, -NB:], T[NB:, NB:]),
+        "corner": (M[-NB:, :NB], T[NB:, :NB])}.items()}
+    out["mirror_bitwise"] = bool(torch.equal(M[:NB, -NB:], M[-NB:, :NB].mT))
+    del M
+    Rf = R.float()
+    U = (Rf * d2[0]).mT.contiguous()            # (n, 256): column k of R o d2
+    V = Rf.mT.contiguous()
+    acc = torch.zeros(2 * NB, 2 * NB, device=DEV)
+    for k in range(n):
+        acc.addr_(U[k], V[k])
+    out["rejected_one_chain_f32"] = tiles(acc)
+    out["rejected_one_pass_bf16"] = tiles(
+        (Rf * d2[0]).bfloat16().double() @ R64.mT)
+    out["library_f32"] = tiles((Rf * d2[0]) @ Rf.mT)
+    del U, V, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_times(A: torch.Tensor, rows: dict, tag: str) -> dict:
+    """Rows 4 and 10 at B = 1 on the large LP's shape, each timed beside its
+    bound (``_bound``), into ``rows[...][tag]``: the assembly with a d2 of
+    one decade, the factor on that M Jacobi-scaled with reg 1e-8."""
+    m, n = A.shape
+    A3 = A.unsqueeze(0)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    d2 = 0.5 + torch.rand(1, n, generator=g, device=DEV)
+    asm = {"m": m, "n": n, "batch": 1, "a_dtype": str(A.dtype),
+           "ms": time_ms(lambda: pk.assemble_sym_batched(A3, d2), reps=2,
+                         warm=1)}
+    asm.update(_bound(*_assembly_work(1, m, n, A.element_size())))
+    M = pk.assemble_sym_batched(A3, d2)
+    j = torch.rsqrt(M.diagonal(dim1=1, dim2=2))
+    M.mul_(j.unsqueeze(2)).mul_(j.unsqueeze(1))
+    M.diagonal(dim1=1, dim2=2).add_(1e-8)
+    fac = {"m": m, "batch": 1,
+           "ms": time_ms(lambda: pk.factor_lt_batched(M), reps=2, warm=1)}
+    fac.update(_bound(*_lt_factor_work(1, m)))
+    del M
+    torch.cuda.empty_cache()
+    rows["assemble_sym_batched"][tag] = asm
+    rows["factor_lt_batched"][tag] = fac
+    return {"assemble_sym_batched": asm, "factor_lt_batched": fac}
+
+
+def _large_run(phase: str, lp, star: float, opts, mesh=None,
+               chunk: int = 0, split: bool = False, hold: bool = True,
+               timing: bool = False) -> tuple:
+    """One ``solve_large`` with its stages recorded (RungRecorder) and,
+    with ``split``, its seconds split by piece; the library Cholesky and
+    triangular solve must not be called.  With ``hold``, rows 4 and 10 are
+    then held on the run's first and last normal matrix (:func:`_hold_path`,
+    ``timing`` their plain versions' times).  Returns (result dict,
+    launches, problems, solution)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timer = SplitTimer() if split else contextlib.nullcontext()
+    with LibraryFactorCalls() as lib, RungRecorder() as rec, \
+            FactorCalls() as fcalls, timer:
+        t0 = time.perf_counter()
+        sol = ipx_torch.solve_large(lp, mesh=mesh, options=opts,
+                                    exec_chunk_iters=chunk, device=DEV)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launched = counts()
+    err = abs(sol.objective - star) / (1 + abs(star))
+    res = dict(m=lp.A.shape[0], n=lp.A.shape[1], a_dtype=str(lp.A.dtype),
+               exec_chunk_iters=chunk,
+               status=sol.status_name, iterations=sol.iterations,
+               rel_gap=sol.rel_gap, rp_rel=sol.rp_rel, rd_rel=sol.rd_rel,
+               objective=sol.objective, obj_rel_err=err, seconds=secs,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               stages=[{k: c[k] for k in ("linsys", "warm", "optimal",
+                                          "max_iterations", "seconds")}
+                       for c in rec.calls],
+               launches={k: v for k, v in launched.items() if v},
+               library_calls=lib.calls)
+    problems = []
+    if split:
+        res["split_seconds"] = dict(timer.seconds)
+        res["split_seconds"]["rest"] = secs - sum(timer.seconds.values())
+        res["split_calls"] = timer.calls
+        never = timer.never_called({c["linsys"] for c in rec.calls})
+        if never:
+            problems.append(f"{phase}: pieces never called: {never}; was a "
+                            f"function renamed?")
+    if not (sol.optimal and sol.rel_gap <= 1e-6 and err <= LARGE_OBJ_TOL):
+        problems.append(f"{phase}: {sol.status_name}, gap {sol.rel_gap:.2e}, "
+                        f"objective {err:.2e} off its optimum")
+    if any(launched[k] == 0 for k in PATH_KERNELS[phase]):
+        problems.append(f"{phase}: a kernel of the path was never launched")
+    if any(lib.calls[k] for k in FACTOR_CALLS):
+        problems.append(f"{phase}: library factor or triangular solve called: "
+                        f"{lib.calls}")
+    if hold:
+        res["held"], held_problems = _hold_path(phase, fcalls.calls, mesh,
+                                                timing)
+        problems += held_problems
+    return res, launched, problems, sol
+
+
+def phase_large(rows: dict) -> dict:
+    """Config 4 whole on the card: m=32768, n=65536, A stored bf16 (its
+    values rounded before b and c are formed), generated on the card from
+    seed 0; row 4's far-corner tiles against float64, beside the summations
+    the limit rejects; rows 4 and 10 timed at this shape; then
+    ``solve_large`` at p = 1 with the default options (the endgame armed)
+    to OPTIMAL, gap 1e-6, objective within 1e-5, its seconds split by piece
+    and its peak memory; rows 4 and 10 held on the run's first and last
+    normal matrix, their plain versions and library calls timed there."""
+    phase = "large"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(0)
+    lp, star = random_feasible_large_device(M_LARGE, N_LARGE, g,
+                                            torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    corners = _far_corners(lp.A)
+    emit("large/far_corners", **corners)
+    if not (max(corners[k] for k in ("first", "last", "corner"))
+            <= TOL_LARGE_F64 and corners["mirror_bitwise"]):
+        fail(phase, f"assemble_sym_batched's far corners: {corners}")
+    if min(corners[k] for k in ("rejected_one_chain_f32",
+                                "rejected_one_pass_bf16")) <= TOL_LARGE_F64:
+        fail(phase, f"TOL_LARGE_F64 passes a rejected summation: {corners}")
+    kernel_times = _large_times(lp.A, rows, "large_b1")
+    opts = ipx_torch.SolverOptions(dtype="float32", a_storage="bfloat16")
+    res, launched, problems, _ = _large_run(phase, lp, star, opts, split=True,
+                                            timing=True)
+    # the plain versions and the library calls, timed on the run's last
+    # normal matrix (the kernels' times do not depend on the values)
+    for name, row in res["held"]["last"].items():
+        rows[name]["large_b1"].update(
+            {k: row[k] for k in ("plain_ms", "library_ms")})
+    res.update(generate_seconds=gen_s, far_corners=corners,
+               kernel_times=kernel_times,
+               launches_rows_4_10={k: launched[k] for k in _LARGE})
+    emit(phase, ok=not problems, **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    del lp
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_large_f32() -> dict:
+    """m=8192, n=16384 with A float32 (row 4's float32 kernel, row 10):
+    ``solve_large`` to OPTIMAL, then with exec_chunk_iters=8, which must
+    give the same status and the objective within 1e-5 relative (what
+    ``tests/test_sharded.py`` asks of ``ipx``); the counts and the held
+    rows 4 and 10 are the first run's."""
+    phase = "large_f32"
+    m = M_LARGE_F32
+    g = torch.Generator(device=DEV).manual_seed(1)
+    lp, star = random_feasible_large_device(m, 2 * m, g, torch.float32,
+                                            device=DEV)
+    opts = ipx_torch.SolverOptions(dtype="float32")
+    res, launched, problems, sol = _large_run(phase, lp, star, opts)
+    res2, _, problems2, sol2 = _large_run(phase, lp, star, opts,
+                                          chunk=LARGE_CHUNK, hold=False)
+    problems += problems2
+    if sol2.status != sol.status or abs(sol2.objective - sol.objective) > (
+            1e-5 * (1 + abs(sol.objective))):
+        problems.append(f"chunked {sol2.status_name} {sol2.objective} against "
+                        f"{sol.status_name} {sol.objective}")
+    emit(phase, ok=not problems, unchunked=res, chunked=res2)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
+def phase_sharded_schur() -> dict:
+    """``linsys="sharded_schur"`` forced at m=4096, n=8192, bf16 A: the
+    endgame route whether or not ``large`` needed it, to OPTIMAL within
+    1e-5 of the optimum; rows 4 and 10 held on its normal matrices."""
+    phase = "sharded_schur"
+    g = torch.Generator(device=DEV).manual_seed(2)
+    lp, star = random_feasible_large_device(M_SCHUR, 2 * M_SCHUR, g,
+                                            torch.bfloat16, device=DEV)
+    opts = ipx_torch.SolverOptions(dtype="float32", a_storage="bfloat16",
+                                   linsys="sharded_schur")
+    res, launched, problems, _ = _large_run(phase, lp, star, opts)
+    emit(phase, ok=not problems, **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
+def phase_large_group() -> dict:
+    """``solve_large`` at m=2048 under a one-rank NCCL group (started here:
+    ``mesh.init_distributed`` is a no-op for one process), so that
+    ``make_mesh`` and the collectives run on the card's backend, rows 4
+    and 10 held on its normal matrices; then config 5's batch-sharded solve
+    on the same mesh as a caller drives it (``batch_lp_sharding``, then
+    ``solve_batch`` of the share, the solutions gathered; B=4 at the main
+    path's width, the rescue ladder on: all four OPTIMAL within 1e-5); the
+    group destroyed after."""
+    import socket
+    phase = "large_group"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        timeout=meshlib.TIMEOUT)
+    try:
+        mesh = meshlib.make_mesh(batch=1, row=1)
+        g = torch.Generator(device=DEV).manual_seed(3)
+        lp, star = random_feasible_large_device(M_GROUP, 2 * M_GROUP, g,
+                                                torch.bfloat16, device=DEV)
+        opts = ipx_torch.SolverOptions(dtype="float32", a_storage="bfloat16")
+        res, launched, problems, _ = _large_run(phase, lp, star, opts,
+                                                mesh=mesh)
+        gb = random_feasible_batch_device(4, M_ROWS, N_COLS, g,
+                                          a_storage="bfloat16", device=DEV)
+        # config 5 as a caller drives it: this rank's share of the batch,
+        # the solutions gathered over the "batch" group
+        share = type(gb.lp)(**{
+            f: getattr(gb.lp, f)[idx]
+            for f, idx in meshlib.batch_lp_sharding(mesh, 4).items()})
+        parts = [None] * mesh.shape[meshlib.BATCH_AXIS]
+        torch.distributed.all_gather_object(
+            parts, ipx_torch.solve_batch(share, options=rescue_options(),
+                                         device=DEV),
+            group=mesh.groups[meshlib.BATCH_AXIS])
+        sols = [s for part in parts for s in part]
+        errs = [abs(s.objective - o) / (1 + abs(o))
+                for s, o in zip(sols, gb.obj_star.tolist())]
+        res["batch_sharded"] = dict(status=[s.status_name for s in sols],
+                                    max_obj_rel_err=max(errs))
+        if len(sols) != 4 or not all(s.optimal for s in sols) \
+                or max(errs) > LARGE_OBJ_TOL:
+            problems.append(f"batch-sharded solve: {res['batch_sharded']}")
+        res["backend"] = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    emit(phase, ok=not problems, **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launched
+
+
 def timed(phase_fn, *args, name=None):
     """Run a phase and print the seconds it took on a line of its own."""
     t0 = time.perf_counter()
@@ -2509,6 +3146,12 @@ def main() -> int:
     by_path["many"] = timed(phase_many, name="solve_many")
     by_path["resume"] = timed(phase_resume, gen, name="resume")
     timed(phase_cli, name="cli")
+    # the large single LP and the multi-device code: the small shapes first,
+    # then config 4 whole
+    by_path["large_group"] = timed(phase_large_group)
+    by_path["sharded_schur"] = timed(phase_sharded_schur)
+    by_path["large_f32"] = timed(phase_large_f32)
+    by_path["large"] = timed(phase_large, rows)
 
     out = []
     for name, row in rows.items():

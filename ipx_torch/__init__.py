@@ -11,12 +11,12 @@ from ipx_torch.options import SolverOptions, DEFAULT_OPTIONS
 from ipx_torch.status import Status
 from ipx_torch.problem.lp import LP, GeneralLP, make_lp, to_standard_form
 from ipx_torch.api import (Solution, solve, solve_batch, solve_general,
-                           solve_mps, solve_many)
+                           solve_mps, solve_large, solve_many)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "SolverOptions", "DEFAULT_OPTIONS", "Status", "LP", "GeneralLP",
     "make_lp", "to_standard_form", "Solution", "solve", "solve_batch",
-    "solve_general", "solve_mps", "solve_many",
+    "solve_general", "solve_mps", "solve_large", "solve_many",
 ]

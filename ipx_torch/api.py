@@ -1,5 +1,5 @@
 """Public API: solve / solve_batch / solve_general / solve_mps /
-solve_many -> Solution."""
+solve_many / solve_large -> Solution."""
 from __future__ import annotations
 
 import dataclasses
@@ -552,3 +552,134 @@ def solve_many(problems, options: Optional[SolverOptions] = None,
                              / (1 + np.abs(c).max(initial=0.0))),
                 trace=sol.trace)
     return out
+
+
+def solve_large(c, A=None, b=None, mesh=None,
+                options: Optional[SolverOptions] = None,
+                exec_chunk_iters: int = 0, device="cuda") -> Solution:
+    """Solve one LARGE standard-form LP with its normal equations across the
+    ranks of ``mesh``'s "row" axis (config 4: m=32k, n=64k).
+
+    Rank i holds A's i-th column block on ``device``; c, b and every
+    iterate are whole on every rank.  The normal matrix is assembled as row
+    panels (a reduce-scatter of the ranks' partial products) and factored by
+    the distributed blocked Cholesky (``ipx_torch/linsys/schur.py``); at
+    p = 1 that is the whole matrix through the kernel factor.  Without a
+    mesh the mesh is every rank of the default process group, or this
+    process alone when there is none.  Every rank returns the same
+    :class:`Solution`.
+
+    The endgame: when the normal-equations stage ends STALLED, MAX_ITER or
+    NUMERICAL_FAILURE, the solve is retried once, warm-started from its best
+    iterate, on ``linsys="sharded_schur"`` (the augmented system's Schur form
+    on the distributed factor); that stage is kept if its best merit is
+    lower, with the iterations of both.  ``options.augmented_fallback=False``
+    turns it off; ``options.linsys="sharded_schur"`` runs that route alone.
+
+    ``exec_chunk_iters > 0`` caps each run at that many iterations and
+    resumes from its state (``obs.resume_state``) until ``max_iter`` or an
+    end, in both stages: a continuation of the same iteration, each run
+    recomputing the starting point's AA^T factor and the carried residuals
+    from the iterate.
+    """
+    from ipx_torch import mesh as meshlib
+    from ipx_torch.linsys import schur
+
+    opts = options or DEFAULT_OPTIONS
+    if opts.linsys not in ("sharded", "sharded_schur"):
+        opts = opts.replace(linsys="sharded")
+    check_ported(opts)
+    if mesh is None:
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_available()
+                 and torch.distributed.is_initialized() else 1)
+        mesh = meshlib.make_mesh(batch=1, row=world)
+    lp = _large_share(c, A, b, mesh, opts, device)
+    with schur.use_mesh(mesh):
+        st = _run_stage(lp, opts, exec_chunk_iters)
+        bad = int(st.status) in (int(Status.STALLED), int(Status.MAX_ITER),
+                                 int(Status.NUMERICAL_FAILURE))
+        if bad and opts.augmented_fallback and opts.linsys == "sharded":
+            sch = opts.replace(linsys="sharded_schur")
+            state0 = mehrotra.warm_start_state(lp, st.best_x, st.best_y,
+                                               st.best_s, sch)
+            st2 = _run_stage(lp, sch, exec_chunk_iters, state0)
+            if float(st2.best_merit) < float(st.best_merit):
+                st = dataclasses.replace(st2, it=st.it + st2.it)
+        return _large_solution(lp, st)
+
+
+def _large_share(c, A, b, mesh, opts: SolverOptions, device) -> LP:
+    """This rank's part of the large LP as a batch of one on ``device``: its
+    column block of A (bf16 kept as stored with ``a_storage="bfloat16"``,
+    never through a float32 copy of the whole), c and b whole in the compute
+    dtype.  Only the block moves to the device."""
+    from ipx_torch import mesh as meshlib
+    if isinstance(c, LP):
+        c, A, b, off = c.c, c.A, c.b, c.obj_offset
+    else:
+        off = 0.0
+    A = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
+    m, n = A.shape
+    p = mesh.shape[meshlib.ROW_AXIS]
+    if n % p or m % p:
+        raise ValueError(
+            f"sharded solve needs m ({m}) and n ({n}) divisible by the "
+            f"row-shard count p={p}; pad the problem first")
+    dtype = dtype_of(opts.dtype)
+    # the block takes its storage dtype where A lives (a host A never
+    # reaches the device in float64), then moves
+    block = A[meshlib.large_lp_sharding(mesh, n)["A"]]
+    if not (block.dtype == torch.bfloat16 and opts.a_storage == "bfloat16"):
+        block = block.to(dtype)
+        if opts.a_storage == "bfloat16":
+            block = block.to(torch.bfloat16)
+    block = block.to(device).contiguous()
+
+    def whole(v):
+        return torch.as_tensor(v).to(device=device, dtype=dtype)
+    return LP(c=whole(c).reshape(1, n), A=block.unsqueeze(0),
+              b=whole(b).reshape(1, m), obj_offset=whole(off).reshape(1))
+
+
+def _run_stage(lp: LP, opts: SolverOptions, chunk: int,
+               state0: Optional[IPMState] = None) -> IPMState:
+    """One stage of :func:`solve_large`; ``chunk > 0`` caps each run at
+    ``chunk`` iterations and resumes until ``max_iter`` or an end."""
+    if chunk <= 0:
+        return _run_batch(lp, opts, state0)
+    caps = list(range(chunk, opts.max_iter + 1, chunk))
+    if not caps or caps[-1] != opts.max_iter:
+        caps.append(opts.max_iter)
+    st = None
+    for cap in caps:
+        s0 = state0 if st is None else obs.resume_state(st, cap)
+        st = _run_batch(lp, opts.replace(max_iter=cap), s0)
+        if int(st.status) not in (int(Status.RUNNING), int(Status.MAX_ITER)):
+            break
+    return st
+
+
+def _large_solution(lp: LP, st: IPMState) -> Solution:
+    """The Solution of :func:`solve_large`, the same on every rank: the best
+    iterate, its residuals measured in float64 through the ranks' products
+    (the host never holds A)."""
+    from ipx_torch.linsys import schur
+    f64 = torch.float64
+    x, y, s = (t.to(f64) for t in (st.best_x, st.best_y, st.best_s))
+    c, b = lp.c.to(f64), lp.b.to(f64)
+    fwd, tr = schur.matvecs(lp.A, wide=True)
+    rp = (fwd(x) - b).abs().max()
+    rd = (tr(y) + s - c).abs().max()
+    X, Y, S = (_host64(t)[0] for t in (x, y, s))
+    C, Bv = _host64(c)[0], _host64(b)[0]
+    off = float(_host64(lp.obj_offset)[0])
+    pobj = float(C @ X)
+    return Solution(
+        x=X, y=Y, s=S, objective=pobj + off,
+        dual_objective=float(Bv @ Y) + off,
+        status=int(st.status[0]), iterations=int(st.it[0]),
+        rel_gap=float((X @ S) / (1 + abs(pobj))),
+        rp_rel=float(rp) / (1 + float(np.abs(Bv).max(initial=0.0))),
+        rd_rel=float(rd) / (1 + float(np.abs(C).max(initial=0.0))),
+        trace=_host64(st.trace)[0])

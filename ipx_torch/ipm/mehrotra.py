@@ -19,7 +19,7 @@ import torch
 
 from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import augmented, normal_eq
+from ipx_torch.linsys import augmented, normal_eq, schur
 from ipx_torch.numerics import inf_norm, mv, mv_wide, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
@@ -34,12 +34,16 @@ def _col(a: torch.Tensor) -> torch.Tensor:
 def _matvecs(A: torch.Tensor, opts: SolverOptions):
     """(w -> A @ w, v -> A^T @ v) on the route the options select: the fused
     kernels, or library products, summed in float64 on the augmented routes
-    (their endgame is measured by these residuals: with one-chain float32
-    sums the CPU's batches of degenerate LPs lose lanes there).  A
-    bf16-stored A cannot meet an f32 vector in a library matmul: the kernels
-    upcast it in registers, ``mv`` makes a transient copy."""
+    and ``"sharded_schur"`` (their endgame is measured by these residuals:
+    with one-chain float32 sums the CPU's batches of degenerate LPs lose
+    lanes there).  On the sharded routes A is this rank's column block and
+    the products go through the ranks (``schur.matvecs``).  A bf16-stored A
+    cannot meet an f32 vector in a library matmul: the kernels upcast it in
+    registers, ``mv`` makes a transient copy, a block of rows at a time."""
     if normal_eq.use_fused_matvec(opts, A):
         return (lambda w: fk.a_matvec(A, w)), (lambda v: fk.at_matvec(A, v))
+    if opts.linsys.startswith("sharded"):
+        return schur.matvecs(A, wide=opts.linsys == "sharded_schur")
     prod = mv_wide if opts.linsys.startswith("augmented") else mv
     return (lambda w: prod(A, w)), (lambda v: prod(A.mT, v))
 
@@ -148,12 +152,14 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     rp, rd, mu = state.rp, state.rd, state.mu
     mu_safe = torch.clamp(mu, min=1e-30)
 
-    # The projection is a normal-equations fix: the augmented routes satisfy
-    # the primal row directly, and projecting through the AA^T factor puts
-    # back the squared conditioning they exist to avoid (in ipx it flips
-    # degenerate lanes from OPTIMAL to STALLED).
+    # The projection is a normal-equations fix: the augmented routes (and
+    # "sharded_schur", the Schur form across ranks) satisfy the primal row
+    # directly, and projecting through the AA^T factor puts back the
+    # squared conditioning they exist to avoid (in ipx it flips degenerate
+    # lanes from OPTIMAL to STALLED).
     do_project = (opts.project_feasibility
-                  and not opts.linsys.startswith("augmented"))
+                  and not opts.linsys.startswith("augmented")
+                  and opts.linsys != "sharded_schur")
 
     # --- factor A D^2 A^T once, reuse for both solves ------------------------
     # d2 is deliberately NOT range-clipped: huge x/s entries are tamed by
@@ -179,7 +185,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
         via the normal equations, or the augmented system on its routes."""
         if opts.linsys == "augmented":
             return augmented.solve_newton(fac, A, x, s, e_p, e_d, e_xs, opts)
-        if opts.linsys == "augmented_schur":
+        if opts.linsys in ("augmented_schur", "sharded_schur"):
             return augmented.solve_newton_schur(fac, A, x, s, e_p, e_d, e_xs,
                                                 opts)
         rhs = -e_p - a_mv(d2 * e_d - e_xs / s)
@@ -397,10 +403,12 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     exhausted = ~finite & (state.reg_boost >= boost_cap)
     # Every failure raises the decay floor to 10x the boost that just
     # FAILED, so a decaying boost never revisits a level the problem has
-    # already broken at.  The decay factor is reg_boost_decay_dense (1.0 =
-    # sticky) on every route this package carries: ipx takes
-    # reg_boost_decay on the sharded routes only, which are refused here.
-    decay = opts.reg_boost_decay_dense
+    # already broken at.  The boost decays by reg_boost_decay on the sharded
+    # routes (a sticky boost there left large solves crawling) and by
+    # reg_boost_decay_dense (1.0 = sticky) elsewhere, where for degenerate
+    # LPs it acts as a needed proximal term.
+    decay = (opts.reg_boost_decay if opts.linsys.startswith("sharded")
+             else opts.reg_boost_decay_dense)
     reg_floor = torch.where(
         finite, state.reg_floor,
         torch.clamp(torch.maximum(state.reg_floor, state.reg_boost * 10.0),

@@ -43,7 +43,9 @@ it, which is also what the kernels are held against on the card.
 ``LAUNCHES`` counts kernel launches per wrapper (one per panel for the
 panel-major factors, two per panel for ``factor_lt_batched`` and
 ``cholesky_batched``, the diagonal kernel's counted apart).  Every blocked
-factor and solve takes m up to ``MAX_M`` on any device.
+factor and solve takes m up to ``MAX_M`` on any device, but for
+``factor_lt_batched``, which takes any multiple of 128 (the large single LP's
+factor).
 """
 from __future__ import annotations
 
@@ -383,11 +385,15 @@ def _panel_ptrs(panels):
     return (ctypes.c_void_p * len(panels))(*[p.data_ptr() for p in panels])
 
 
-def _check_panel_dims(name: str, B: int, m: int) -> None:
+def _check_panel_dims(name: str, B: int, m: int, capped: bool = True) -> None:
+    """m a positive multiple of NB, and (``capped``) at most ``MAX_M``: the
+    cap belongs to what reads a whole panel column or r and x in one block's
+    shared memory (the pair-solves, row 11, the panel kernels' pointer
+    arrays), not to the full-matrix factor, which indexes in size_t."""
     if m < NB or m % NB:
         raise ValueError(f"{name}: m={m} must be a positive multiple of {NB} "
                          "(the caller pads)")
-    if m > MAX_M:
+    if capped and m > MAX_M:
         raise ValueError(
             f"{name}: m={m} exceeds {MAX_M}, the most the blocked solves' shared "
             "memory holds (larger m needs a solve that tiles r and x: "
@@ -569,14 +575,15 @@ def chol_solve_batched_panels(panels, W: torch.Tensor,
 # factors and solves over a full (B, m, m) matrix
 # --------------------------------------------------------------------------
 
-def _check_square(name: str, M: torch.Tensor):
-    """M (B, m, m) f32 contiguous, m within the blocked routes' range."""
+def _check_square(name: str, M: torch.Tensor, capped: bool = True):
+    """M (B, m, m) f32 contiguous, m within the blocked routes' range (any
+    multiple of NB when not ``capped``)."""
     if M.ndim != 3 or M.shape[1] != M.shape[2]:
         raise ValueError(f"{name}: expected (B, m, m), got {tuple(M.shape)}")
     if M.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {M.dtype}")
     B, m, _ = M.shape
-    _check_panel_dims(name, B, m)
+    _check_panel_dims(name, B, m, capped)
     if not M.is_contiguous():
         raise ValueError(f"{name}: the matrix must be contiguous")
     return B, m
@@ -707,10 +714,12 @@ def factor_lt_batched(M: torch.Tensor):
         L_kk^T, W_k = diag_factor_inv(C[:, :NB])
         LT[o:o+NB, :] = [0 | L_kk^T | W_k C[:, NB:]]
 
-    three launches on the card (accumulate, diagonal, row panel).  The
+    m may exceed ``MAX_M``: nothing of the factor holds a whole panel
+    column in shared memory, and every offset is a size_t.  Three launches a
+    panel on the card (accumulate, diagonal, row panel).  The
     accumulation is the kernel of :func:`factor_lt_panels` over another
     address map: on the same prior rows the two give C the same bits."""
-    B, m = _check_square("factor_lt_batched", M)
+    B, m = _check_square("factor_lt_batched", M, capped=False)
     if not M.is_cuda:
         return factor_lt_batched_plain(M)
     nb = m // NB

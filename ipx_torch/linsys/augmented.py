@@ -21,12 +21,17 @@ keeps cond ~ 1/mu.  Two routes solve it:
                        ``aug_schur_refine`` sweeps against the true augmented
                        operator
 
+    "sharded_schur"    the Schur form of one large LP whose A the ranks hold
+                       by columns: the reduced matrix assembled and factored
+                       across ranks by ``linsys.schur`` (config 4's endgame)
+
 H^-1 = x / (s + reg_p x) is capped at 1/reg_p, so the reduced matrix never
 conditions like the raw x/s normal equations.  Every tensor has a leading
 batch dimension; ``reg_scale`` is a per-lane (B,) tensor or a float.  The
 products with A are library products summed in float64
-(``numerics.mv_wide``), as are the residuals ``ipm.mehrotra`` measures on
-these routes.
+(``numerics.mv_wide``; on ``"sharded_schur"`` through the all-reduce,
+``schur.matvecs``), as are the residuals ``ipm.mehrotra`` measures on these
+routes.
 """
 from __future__ import annotations
 
@@ -34,10 +39,18 @@ from dataclasses import dataclass
 
 import torch
 
-from ipx_torch.linsys import normal_eq
+from ipx_torch.linsys import normal_eq, schur
 from ipx_torch.linsys.normal_eq import NormalEqFactor
-from ipx_torch.numerics import mv_wide as mv
+from ipx_torch.numerics import mv_wide
 from ipx_torch.options import SolverOptions
+
+
+def _products(A: torch.Tensor, opts: SolverOptions):
+    """(w -> A w, v -> A^T v) summed in float64, through the ranks on
+    ``"sharded_schur"``."""
+    if opts.linsys == "sharded_schur":
+        return schur.matvecs(A, wide=True)
+    return (lambda w: mv_wide(A, w)), (lambda v: mv_wide(A.mT, v))
 
 
 @dataclass(frozen=True)
@@ -76,11 +89,12 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
     return AugFactor(lu=lu, piv=piv, d2=d2, ok=ok)
 
 
-def _apply_unreg(A, d2, dx, dy):
+def _apply_unreg(A, d2, dx, dy, opts: SolverOptions):
     """The true (unregularized) augmented operator applied to (dx, dy)."""
+    fwd, tr = _products(A, opts)
     tiny = torch.finfo(d2.dtype).tiny
     inv_d2 = 1.0 / torch.clamp(d2, min=tiny)
-    return -inv_d2 * dx + mv(A.mT, dy), mv(A, dx)
+    return -inv_d2 * dx + tr(dy), fwd(dx)
 
 
 def _lu_solve(fac: AugFactor, rhs: torch.Tensor) -> torch.Tensor:
@@ -94,7 +108,7 @@ def _solve_refined(fac: AugFactor, A, r1, r2, opts: SolverOptions):
     n = A.shape[-1]
     sol = _lu_solve(fac, torch.cat([r1, r2], dim=-1))
     for _ in range(opts.refine_steps):
-        a1, a2 = _apply_unreg(A, fac.d2, sol[:, :n], sol[:, n:])
+        a1, a2 = _apply_unreg(A, fac.d2, sol[:, :n], sol[:, n:], opts)
         sol = sol + _lu_solve(fac, torch.cat([r1 - a1, r2 - a2], dim=-1))
     return sol[:, :n], sol[:, n:]
 
@@ -117,7 +131,7 @@ def solve_newton(fac: AugFactor, A, x, s, e_p, e_d, e_xs,
 def normal_solve(fac: AugFactor, A, rhs, opts: SolverOptions):
     """Solve (A D^2 A^T) y = rhs through the augmented factor: with r1 = 0,
     row 1 gives dx = D^2 A^T dy, row 2 then A D^2 A^T dy = rhs."""
-    zeros = rhs.new_zeros(rhs.shape[0], A.shape[-1])
+    zeros = rhs.new_zeros(fac.d2.shape)
     return _solve_refined(fac, A, zeros, rhs, opts)[1]
 
 
@@ -135,9 +149,11 @@ class AugSchurFactor:
 
 
 def _inner_opts(opts: SolverOptions) -> SolverOptions:
-    """The reduced system runs on the dense route (``sharded_schur``, whose
-    reduced system is distributed, is refused by ``check_ported``)."""
-    return opts.replace(linsys="dense")
+    """The route the reduced m x m system runs on: the batched dense
+    machinery for ``"augmented_schur"``, the distributed factor
+    (``linsys.schur``) for ``"sharded_schur"``."""
+    return opts.replace(
+        linsys="sharded" if opts.linsys == "sharded_schur" else "dense")
 
 
 def factor_schur(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
@@ -161,9 +177,10 @@ def factor_schur(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
 def _schur_apply(fac: AugSchurFactor, A, r1, r2, opts: SolverOptions):
     """One pass through the reduced system for the right-hand side
     (r1, r2)."""
-    dy = normal_eq.solve(fac.ne, A, r2 + mv(A, fac.d2p * r1),
+    fwd, tr = _products(A, opts)
+    dy = normal_eq.solve(fac.ne, A, r2 + fwd(fac.d2p * r1),
                          _inner_opts(opts))
-    return fac.d2p * (mv(A.mT, dy) - r1), dy
+    return fac.d2p * (tr(dy) - r1), dy
 
 
 def _schur_solve_refined(fac: AugSchurFactor, A, r1, r2,
@@ -172,7 +189,7 @@ def _schur_solve_refined(fac: AugSchurFactor, A, r1, r2,
     augmented operator (no reg_p, no reg_d)."""
     dx, dy = _schur_apply(fac, A, r1, r2, opts)
     for _ in range(opts.aug_schur_refine):
-        a1, a2 = _apply_unreg(A, fac.d2, dx, dy)
+        a1, a2 = _apply_unreg(A, fac.d2, dx, dy, opts)
         ddx, ddy = _schur_apply(fac, A, r1 - a1, r2 - a2, opts)
         dx, dy = dx + ddx, dy + ddy
     return dx, dy
@@ -185,5 +202,5 @@ def solve_newton_schur(fac: AugSchurFactor, A, x, s, e_p, e_d, e_xs,
 
 
 def normal_solve_schur(fac: AugSchurFactor, A, rhs, opts: SolverOptions):
-    zeros = rhs.new_zeros(rhs.shape[0], A.shape[-1])
+    zeros = rhs.new_zeros(fac.d2.shape)
     return _schur_solve_refined(fac, A, zeros, rhs, opts)[1]

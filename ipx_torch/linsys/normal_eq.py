@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
+from ipx_torch.linsys import schur
 from ipx_torch.numerics import mm, mv, vdot
 from ipx_torch.options import SolverOptions
 
@@ -151,13 +152,16 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
     ((B,) tensor or float) is the per-lane escalation factor
     (``IPMState.reg_boost``) raised after a non-finite step.
 
-    On ``linsys="augmented"`` and ``"augmented_schur"`` the factor is that
-    route's (``linsys.augmented``), so every caller, the starting point
+    On ``linsys="augmented"``, ``"augmented_schur"`` and ``"sharded_schur"``
+    the factor is that route's (``linsys.augmented``), on ``"sharded"`` the
+    distributed one (``linsys.schur``), so every caller, the starting point
     included, factors the system its route solves.
     """
+    if opts.linsys == "sharded":
+        return schur.factor(A, d2, opts, reg_scale)
     if opts.linsys == "augmented":
         return _augmented().factor(A, d2, opts, reg_scale)
-    if opts.linsys == "augmented_schur":
+    if opts.linsys in ("augmented_schur", "sharded_schur"):
         return _augmented().factor_schur(A, d2, opts, reg_scale)
     if opts.chol_backend != "xla":
         return _factor_blocked(A, d2, opts, reg_scale)
@@ -406,11 +410,14 @@ def solve(fac: NormalEqFactor, A: torch.Tensor, rhs: torch.Tensor,
     the assembled m x m matrix ``fac.M``, a quarter of the bytes per
     iteration.
 
-    On the augmented routes the solve goes through that route's factor.
+    On the augmented and sharded routes the solve goes through that route's
+    factor.
     """
+    if opts.linsys == "sharded":
+        return schur.solve(fac, A, rhs, opts)
     if opts.linsys == "augmented":
         return _augmented().normal_solve(fac, A, rhs, opts)
-    if opts.linsys == "augmented_schur":
+    if opts.linsys in ("augmented_schur", "sharded_schur"):
         return _augmented().normal_solve_schur(fac, A, rhs, opts)
     tiny = torch.finfo(rhs.dtype).tiny
 

@@ -34,6 +34,31 @@ def _like(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return a if a.dtype == x.dtype else a.to(x.dtype)
 
 
+# the most a product's transient copy of its matrix may take: a larger
+# copy is made and used in blocks of the matrix's rows
+COPY_BYTES = 1 << 30
+
+
+def _mv_as(a: torch.Tensor, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``a @ x`` with ``a`` and ``x`` taken in ``dt``.  Each output entry is
+    one library product over all of ``a``'s columns; when ``a`` needs a copy
+    of more than ``COPY_BYTES``, the copy is made a block of rows at a time
+    (at m=32768, n=65536 a float32 copy of a bf16 A would be 8.6 GB)."""
+    xd = x.to(dt).unsqueeze(-1)
+    if a.dtype == dt:
+        return torch.matmul(a, xd).squeeze(-1)
+    r, k = a.shape[-2], a.shape[-1]
+    per_row = k * dt.itemsize * max(1, a[..., :1, :1].numel())
+    rows = max(1, COPY_BYTES // per_row)
+    if rows >= r:
+        return torch.matmul(a.to(dt), xd).squeeze(-1)
+    out = torch.empty(a.shape[:-1], dtype=dt, device=a.device)
+    for r0 in range(0, r, rows):
+        out[..., r0:r0 + rows] = torch.matmul(a[..., r0:r0 + rows, :].to(dt),
+                                              xd).squeeze(-1)
+    return out
+
+
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched matrix @ matrix."""
     return torch.matmul(_like(a, b), b)
@@ -42,7 +67,12 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Batched matrix @ vector: ``(B, r, k) @ (B, k) -> (B, r)``.  Pass
     ``a.mT`` for the transposed product (a view; nothing is copied)."""
-    return torch.matmul(_like(a, x), x.unsqueeze(-1)).squeeze(-1)
+    return _mv_as(a, x, x.dtype)
+
+
+def mv64(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mv` summed in float64 and returned in float64."""
+    return _mv_as(a, x, torch.float64)
 
 
 def mv_wide(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -51,11 +81,7 @@ def mv_wide(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     each entry in one float32 chain (torch's on the CPU does), which the
     summation rule does not accept.  The transient copy of ``a`` is
     float64."""
-    if x.dtype == torch.float64:
-        return mv(a, x)
-    f64 = torch.float64
-    return torch.matmul(a.to(f64), x.to(f64).unsqueeze(-1)).squeeze(-1).to(
-        x.dtype)
+    return mv64(a, x).to(x.dtype)
 
 
 def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

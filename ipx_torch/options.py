@@ -176,10 +176,6 @@ def check_ported(opts: SolverOptions) -> None:
     An option is either honoured or refused, never silently replaced.  Each
     message names the ROADMAP.md item that will carry the value.
     """
-    if opts.linsys.startswith("sharded"):
-        raise NotImplementedError(
-            f"linsys={opts.linsys!r} is not ported yet (ROADMAP.md: module "
-            "5, large single LP and multi-device)")
     if opts.dtype == "bfloat16":
         raise NotImplementedError(
             "dtype='bfloat16' as COMPUTE dtype is not carried: "

@@ -3,7 +3,8 @@
 Sample a strictly complementary primal-dual pair (x*, y*, s*) and construct
 (b, c) from it, so the optimal objective c@x* is known by construction and
 serves as a test oracle.  ``random_feasible_lp`` is the host (numpy) form;
-``random_feasible_batch_device`` makes a whole batch on the device.
+``random_feasible_batch_device`` makes a whole batch on the device,
+``random_feasible_large_device`` one large LP there (config 4).
 ``random_general_lp`` makes a general LP (inequalities, bounds, free
 variables) that is feasible and bounded by construction.
 """
@@ -179,3 +180,36 @@ def random_feasible_batch_device(batch: int, m: int, n: int,
                     0.5 + 1.5 * torch.rand(batch, n - m, **kw))
     y_star = torch.randn(batch, m, **kw)
     return lp_from_optimum(A, x_star, y_star, s_star, dtype)
+
+
+def random_feasible_large_device(m: int, n: int, generator: torch.Generator,
+                                 a_dtype: torch.dtype = torch.bfloat16,
+                                 device="cuda"):
+    """One LP of :func:`random_feasible_lp`'s construction (support m) at a
+    size where a float32 copy of A is gigabytes (config 4: m=32768,
+    n=65536), drawn on ``device`` from ``generator``.  A is drawn in float32
+    2048 rows at a time and stored as ``a_dtype`` (bf16: the DATA rounded
+    before b and c are formed from it, so the constructed optimum is exact
+    for the solved instance); b = A x* and c = A^T y* + s* are summed in
+    float64 a block of A's rows at a time and rounded to float32.  Returns
+    ``(lp, obj_star)``: a single-instance LP and c.x* in float64 from the
+    float32 data."""
+    from ipx_torch.numerics import mv64
+    if generator.device != torch.device(device):
+        raise ValueError(f"generator lives on {generator.device}, "
+                         f"LP requested on {device}")
+    kw = dict(generator=generator, device=device)
+    A = torch.empty(m, n, dtype=a_dtype, device=device)
+    for r0 in range(0, m, 2048):
+        r1 = min(m, r0 + 2048)
+        A[r0:r1] = (torch.randn(r1 - r0, n, **kw) / n ** 0.5).to(a_dtype)
+    perm = torch.randperm(n, **kw)
+    x = torch.zeros(n, device=device)
+    x[perm[:m]] = 0.5 + 1.5 * torch.rand(m, **kw)
+    s = torch.zeros(n, device=device)
+    s[perm[m:]] = 0.5 + 1.5 * torch.rand(n - m, **kw)
+    y = torch.randn(m, **kw)
+    b = mv64(A.unsqueeze(0), x.unsqueeze(0))[0].float()
+    c = (mv64(A.mT.unsqueeze(0), y.unsqueeze(0))[0] + s.double()).float()
+    lp = LP(c=c, A=A, b=b, obj_offset=torch.zeros((), device=device))
+    return lp, float((c.double() * x.double()).sum())

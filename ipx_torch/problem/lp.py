@@ -33,7 +33,9 @@ class LP:
 
     @property
     def n(self) -> int:
-        return self.A.shape[-1]
+        # c's width, not A's: on the sharded route a rank holds a column
+        # block of A and the whole of c (``ipx_torch.mesh``)
+        return self.c.shape[-1]
 
     def astype(self, dtype: torch.dtype) -> "LP":
         return LP(c=self.c.to(dtype), A=self.A.to(dtype), b=self.b.to(dtype),

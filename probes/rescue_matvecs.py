@@ -95,12 +95,12 @@ def main() -> int:
         calls["n"] += 1
         return wide(a, x)
 
-    mehrotra.mv_wide = augmented.mv = counted
+    mehrotra.mv_wide = augmented.mv_wide = counted
     try:
         mehrotra.mehrotra_step(lp, st, opts, fac_aat)
         torch.cuda.synchronize()
     finally:
-        mehrotra.mv_wide = augmented.mv = wide
+        mehrotra.mv_wide = augmented.mv_wide = wide
     step_ms = time_ms(lambda: mehrotra.mehrotra_step(lp, st, opts, fac_aat),
                       reps=3, warm=1)
     per = (out["mv_wide"]["a_w_ms"] + out["mv_wide"]["at_v_ms"]) / 2

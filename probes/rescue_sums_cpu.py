@@ -45,13 +45,13 @@ def main() -> int:
             options=ipx.SolverOptions(**kw))}
         for variant, prod in (("port", numerics.mv_wide),
                               ("port_one_chain_sums", numerics.mv)):
-            mehrotra.mv_wide = augmented.mv = prod
+            mehrotra.mv_wide = augmented.mv_wide = prod
             try:
                 rows[variant] = ipx_torch.solve_batch(
                     [tmake_lp(g.c, g.A, g.b, device="cpu") for g in gs],
                     options=ipx_torch.SolverOptions(**kw), device="cpu")
             finally:
-                mehrotra.mv_wide = augmented.mv = numerics.mv_wide
+                mehrotra.mv_wide = augmented.mv_wide = numerics.mv_wide
         print(json.dumps({"linsys": linsys, "instances": B, **{
             k: {"optimal": sum(s.optimal for s in v),
                 "iterations": sum(s.iterations for s in v)}

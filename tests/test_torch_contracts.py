@@ -68,8 +68,8 @@ def test_option_validation_matches_ipx(kw):
 
 
 def test_exports_match_ipx():
-    """Every name ``ipx`` exports, but ``solve_large`` (not ported yet)."""
-    assert set(ipx_torch.__all__) == set(ipx.__all__) - {"solve_large"}
+    """Every name ``ipx`` exports, and no other."""
+    assert ipx_torch.__all__ == ipx.__all__
     assert all(hasattr(ipx_torch, name) for name in ipx_torch.__all__)
 
 
@@ -92,9 +92,10 @@ def _tiny_lp():
 
 
 NOT_PORTED = [
-    dict(linsys="sharded"), dict(linsys="sharded_schur"),
     dict(dtype="bfloat16"),
 ]
+# the sharded routes, carried by solve_large (they need the mesh it makes)
+SHARDED = [dict(linsys="sharded"), dict(linsys="sharded_schur")]
 # option values that were refused until their code path was carried
 NOW_PORTED = [
     dict(chol_backend="pallas"), dict(chol_backend="blocked"),
@@ -127,6 +128,18 @@ def test_ported_option_values_solve(kw):
     for sol in (sols[0], one):
         assert sol.optimal, sol.status_name
         assert abs(sol.objective - 1.0) <= 1e-5
+
+
+@pytest.mark.parametrize("kw", SHARDED, ids=[str(k) for k in SHARDED])
+def test_sharded_option_values_solve(kw):
+    """Each sharded route solves the tiny LP through ``solve_large`` on the
+    CPU (one process: p = 1), through ``check_ported`` first; objective
+    within 1e-5."""
+    opts = ipx_torch.SolverOptions(**{"augmented_fallback": False, **kw})
+    ipx_torch.options.check_ported(opts)
+    sol = ipx_torch.solve_large(_tiny_lp(), options=opts, device="cpu")
+    assert sol.optimal, sol.status_name
+    assert abs(sol.objective - 1.0) <= 1e-5
 
 
 def test_presolve_and_default_fallback_are_refused():

@@ -232,7 +232,9 @@ def test_non_pd_lane_shows_on_its_own_diagonal_only():
                                   "solve_triangular_batched"])
 def test_bad_shapes_and_types_are_refused(name):
     """m off the 128 grid, m over the blocked routes' limit, float64 and a
-    non-contiguous matrix raise before any work."""
+    non-contiguous matrix raise before any work.  ``factor_lt_batched``, the
+    large single LP's factor, takes m over that limit (shapes only here;
+    ``tests/test_torch_sharded.py`` factors such an m)."""
     fn = getattr(tpk, name)
     solve = name.startswith(("chol_solve", "solve_"))
 
@@ -245,9 +247,12 @@ def test_bad_shapes_and_types_are_refused(name):
         return fn(F, torch.zeros(B, max(m // NB, 1), NB, NB, dtype=dtype),
                   torch.zeros(B, m, dtype=dtype))
 
-    for m in (200, 64, tpk.MAX_M + NB):
+    over = tpk.MAX_M + NB
+    for m in (200, 64) + (() if name == "factor_lt_batched" else (over,)):
         with pytest.raises(ValueError, match=str(m)):
             call(1, m)
+    if name == "factor_lt_batched":
+        tpk._check_panel_dims(name, 1, over, capped=False)
     with pytest.raises(TypeError):
         call(1, 128, dtype=torch.float64)
     F = torch.zeros(1, 256, 256).mT
