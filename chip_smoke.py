@@ -32,7 +32,10 @@ against HiGHS (also with A rounded to bf16 values and stored bf16),
 chunked solve resumed from its on-disk snapshots, ``python -m ipx_torch``
 in child processes, and the large single LP through ``ipx_torch.solve_large``:
 at m=2048 under a one-rank NCCL group (with config 5's batch-sharded
-``solve_batch`` driven as a caller drives it), the ``"sharded_schur"``
+``solve_batch`` driven as a caller drives it), config 5 with each A split
+over the "row" axis (``solve_batch(share, mesh=)`` on eight instances at
+the main path's width, in this process at p = 1 and on two child processes
+that share the card over gloo), the ``"sharded_schur"``
 endgame forced at m=4096, an f32 A at m=8192 chunked and not, and config 4
 whole (m=32768, n=65536, bf16 A), with row 10 held past the pair-solve's m,
 row 4's far-corner tiles against f64 beside the summations the limit
@@ -41,11 +44,14 @@ and the last normal matrix the path built against their plain versions and
 float64.
 Every phase prints one JSON line, and a line with its seconds; any failure
 exits non-zero.  Needs a CUDA
-device: without one it exits with code 2 and prints no result.
+device: without one it exits with code 2 and prints no result.  The
+``row_sharded`` phase starts this file twice more as
+``chip_smoke.py --row-sharded-rank RANK PORT``, one rank each.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import inspect
 import json
 import statistics
@@ -233,6 +239,14 @@ LARGE_OBJ_TOL = 1e-5        # objective against the constructed optimum
 TOL_LARGE_F64 = 5e-6
 LARGE_CHUNK = 8             # exec_chunk_iters of the chunked f32 run
 _LARGE = ("assemble_sym_batched", "factor_lt_batched", "diag_factor_inv")
+# config 5 with each A split over the "row" axis: the main path's width,
+# eight instances, in one process at p = 1 and on a (1, 2) mesh of two
+# ranks that share the card over gloo; the objectives within
+# ``dryrun_multichip``'s 1e-5 of the one-process solve and of the optima
+B_ROW = 8
+ROW_SEED = 11
+ROW_OBJ_TOL = 1e-5
+ROW_CHILD_TIMEOUT = 300     # seconds for the two ranks of the mesh run
 
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -316,6 +330,10 @@ PATH_KERNELS = {
     "large_f32": _LARGE,
     "sharded_schur": _LARGE,
     "large_group": _LARGE,
+    # config 5 on the sharded route: at p = 1 the whole factor of each
+    # lane, on the (1, 2) mesh (rank 0's counts) the diagonal blocks
+    "row_sharded": _LARGE,
+    "row_sharded_mesh": _LARGE,
 }
 # the library calls a path may make: the factor and triangular solve of the
 # library route, which the kernel paths must not make, and the LU route's
@@ -2781,29 +2799,36 @@ def _hold_path(phase: str, calls: dict, mesh, timing: bool = False) -> tuple:
                            timing=timing and when == "last")
         del got
         out[when] = {"assemble_sym_batched": asm, "factor_lt_batched": fac}
-        if not (asm["symmetric_bitwise"] and asm["vs_f64"] <= TOL_LARGE_F64
-                and asm["vs_plain"] <= asm["plain_vs_f64"] + TOL_LARGE_F64):
-            problems.append(f"{phase}: assemble_sym_batched on the {when} "
-                            f"matrix: {asm}")
-        # The first matrix is held to the full-matrix factors' limits
-        # whole.  The last one, once d2 spans many decades, is
-        # ill-conditioned: its f32 factors' forward errors are its condition
-        # times eps (the plain version's and the library's are printed
-        # beside the kernel's; at config 4 it is not even positive definite
-        # in f64), so it is held to the limits that do not grow with the
-        # condition, the backward error and ||W L - I|| (the latter with
-        # the ill-conditioned block's limit).
-        if when == "first":
-            ok = (fac["vs_f64"] is not None
-                  and fac["vs_f64"] <= TOL_PANELS_F64
-                  and fac["vs_plain"] <= TOL_LT_PLAIN
-                  and fac["w_inverse"] <= TOL_DIAG_INVERSE)
-        else:
-            ok = fac["w_inverse"] <= TOL_DIAG_INVERSE_ILL
-        if not (ok and fac["finite"] and fac["backward"] <= TOL_RECONSTRUCT):
-            problems.append(f"{phase}: factor_lt_batched on the {when} "
-                            f"matrix: {fac}")
+        problems += _held_problems(phase, when, asm, fac)
     return out, problems
+
+
+def _held_problems(phase: str, when: str, asm: dict, fac: dict) -> list:
+    """What fails of rows 4 and 10 held on a path's ``when`` ("first" or
+    "last") normal matrix (:func:`_hold_assembly`, :func:`_hold_factor`)."""
+    problems = []
+    if not (asm["symmetric_bitwise"] and asm["vs_f64"] <= TOL_LARGE_F64
+            and asm["vs_plain"] <= asm["plain_vs_f64"] + TOL_LARGE_F64):
+        problems.append(f"{phase}: assemble_sym_batched on the {when} "
+                        f"matrix: {asm}")
+    # The first matrix is held to the full-matrix factors' limits whole.
+    # The last one, once d2 spans many decades, is ill-conditioned: its f32
+    # factors' forward errors are its condition times eps (the plain
+    # version's and the library's are printed beside the kernel's; at
+    # config 4 it is not even positive definite in f64), so it is held to
+    # the limits that do not grow with the condition, the backward error
+    # and ||W L - I|| (the latter with the ill-conditioned block's limit).
+    if when == "first":
+        ok = (fac["vs_f64"] is not None
+              and fac["vs_f64"] <= TOL_PANELS_F64
+              and fac["vs_plain"] <= TOL_LT_PLAIN
+              and fac["w_inverse"] <= TOL_DIAG_INVERSE)
+    else:
+        ok = fac["w_inverse"] <= TOL_DIAG_INVERSE_ILL
+    if not (ok and fac["finite"] and fac["backward"] <= TOL_RECONSTRUCT):
+        problems.append(f"{phase}: factor_lt_batched on the {when} "
+                        f"matrix: {fac}")
+    return problems
 
 
 def _far_corners(A: torch.Tensor) -> dict:
@@ -3077,6 +3102,213 @@ def phase_large_group() -> dict:
     return launched
 
 
+class KernelCalls:
+    """While active, keeps the inputs and outputs of the first and the last
+    call of rows 4 and 10 (``assemble_sym_batched``, ``factor_lt_batched``),
+    copied at the call (the path scales the assembled matrix in place):
+    what :func:`_hold_calls` holds after the run, on a rank whose path runs
+    collectives that cannot be replayed alone."""
+
+    def __enter__(self):
+        self.calls = {"asm": {}, "factor": {}}
+        self._orig = asm, fac = pk.assemble_sym_batched, pk.factor_lt_batched
+
+        def asm_keep(A, d2):
+            M = asm(A, d2)
+            self._keep("asm", (A, d2.clone(), M.clone()))
+            return M
+
+        def fac_keep(M):
+            LT, W = fac(M)
+            self._keep("factor", (M.clone(), LT.clone(), W.clone()))
+            return LT, W
+        pk.assemble_sym_batched, pk.factor_lt_batched = asm_keep, fac_keep
+        return self
+
+    def _keep(self, name, rec):
+        self.calls[name].setdefault("first", rec)
+        self.calls[name]["last"] = rec
+
+    def __exit__(self, *exc):
+        pk.assemble_sym_batched, pk.factor_lt_batched = self._orig
+
+
+def _worst(rows: list) -> dict:
+    """One reading from a lane's each: the largest of each number, every
+    flag's AND."""
+    out = {}
+    for k in rows[0]:
+        vals = [r[k] for r in rows if r[k] is not None]
+        if not vals:
+            out[k] = None
+        elif isinstance(vals[0], bool):
+            out[k] = all(vals)
+        elif isinstance(vals[0], float):
+            out[k] = max(vals)
+        else:
+            out[k] = vals[0]
+    return out
+
+
+def _hold_calls(phase: str, calls: dict) -> tuple:
+    """Rows 4 and 10 held lane by lane on the first and the last call a run
+    made (:class:`KernelCalls`) -> (the worst reading over the lanes of
+    each, problems)."""
+    out, problems = {}, []
+    for when in ("first", "last"):
+        A, d2, M = calls["asm"][when]
+        Ms, LT, W = calls["factor"][when]
+        asms, facs = [], []
+        for b in range(A.shape[0]):
+            asms.append(_hold_assembly(A[b:b + 1], d2[b:b + 1], M[b:b + 1],
+                                       timing=False))
+            facs.append(_hold_factor(Ms[b:b + 1], LT[b:b + 1], W[b:b + 1],
+                                     timing=False))
+            problems += _held_problems(f"{phase} lane {b}", when, asms[-1],
+                                       facs[-1])
+        out[when] = {"assemble_sym_batched": _worst(asms),
+                     "factor_lt_batched": _worst(facs)}
+    return out, problems
+
+
+def _row_batch():
+    """The eight instances of the ``row_sharded`` phase, made on the card
+    from ROW_SEED (every process that makes them gets the same bits)."""
+    g = torch.Generator(device=DEV).manual_seed(ROW_SEED)
+    return random_feasible_batch_device(B_ROW, M_ROWS, N_COLS, g,
+                                        a_storage="bfloat16", device=DEV)
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _row_solve(lp, mesh, hold: bool) -> dict:
+    """``solve_batch(lp, mesh=mesh)`` on the sharded route, its launches
+    counted from 0 and, with ``hold``, rows 4 and 10 held on its first and
+    last normal matrices afterwards."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with KernelCalls() as kc, LibraryFactorCalls() as lib:
+        t0 = time.perf_counter()
+        # the default options with the instances' A storage, the endgame
+        # armed
+        sols = ipx_torch.solve_batch(lp, options=ipx_torch.SolverOptions(
+            dtype="float32", a_storage="bfloat16", linsys="sharded"),
+            device=DEV, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    res = dict(seconds=secs,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=counts(), library_calls=lib.calls,
+               status=[q.status_name for q in sols],
+               iterations=[q.iterations for q in sols],
+               objective=[q.objective for q in sols],
+               digest=_digest(*[q.x for q in sols]))
+    if hold:
+        res["held"], res["problems"] = _hold_calls("row_sharded", kc.calls)
+    return res
+
+
+def row_sharded_child(rank: int, port: int) -> int:
+    """One of the two ranks of the ``row_sharded`` phase's mesh (run as
+    ``chip_smoke.py --row-sharded-rank RANK PORT``): a gloo group on the one
+    card, a (1, 2) mesh, this rank's share of the eight instances (each A's
+    column block), rank 0 holding rows 4 and 10; one ROW_RESULT line."""
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank, timeout=meshlib.TIMEOUT)
+    try:
+        mesh = meshlib.make_mesh(batch=1, row=2)
+        gb = _row_batch()
+        idx = meshlib.batch_lp_sharding(mesh, B_ROW, N_COLS)
+        share = type(gb.lp)(**{f: getattr(gb.lp, f)[i]
+                               for f, i in idx.items()})
+        res = _row_solve(share, mesh, hold=rank == 0)
+        res.update(rank=rank, backend=torch.distributed.get_backend())
+    finally:
+        torch.distributed.destroy_process_group()
+    print("ROW_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def phase_row_sharded() -> dict:
+    """Config 5 with each A split over the "row" axis, at the main path's
+    width (m=1024, n=2048, bf16 A, eight instances, default options with
+    the endgame armed): ``solve_batch(..., mesh=make_mesh())`` in this
+    process at p = 1 with ``linsys="sharded"``, then on a (1, 2) mesh of two
+    child processes sharing the card over gloo (the kernels already built
+    here).  All eight OPTIMAL within 1e-5 of the optima on both, the
+    objectives within 1e-5 relative of the main path's one-process
+    ``solve_batch`` (throughput() with the ladder), both ranks' x bit for
+    bit, rows 4 and 10 held on rank 0's first and last normal matrices.
+    Returns the launches of the p = 1 run and rank 0's."""
+    import socket
+    phase = "row_sharded"
+    gb = _row_batch()
+    star = gb.obj_star.tolist()
+    ref = ipx_torch.solve_batch(gb.lp, options=rescue_options(), device=DEV)
+    ref_obj = [q.objective for q in ref]
+    p1 = _row_solve(gb.lp, meshlib.make_mesh(), hold=False)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--row-sharded-rank",
+         str(r), str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=ROW_CHILD_TIMEOUT))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    ranks = []
+    for r, (pr, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("ROW_RESULT ")]
+        if pr.returncode != 0 or not lines:
+            fail(phase, f"rank {r} exit {pr.returncode}: {err[-3000:]}")
+        ranks.append(json.loads(lines[-1][len("ROW_RESULT "):]))
+    problems = list(ranks[0].pop("problems"))
+    for name, run in (("p1", p1), ("mesh", ranks[0])):
+        errs = [abs(o - t) / (1 + abs(t)) for o, t in zip(run["objective"],
+                                                          star)]
+        vs = [abs(o - t) / (1 + abs(t)) for o, t in zip(run["objective"],
+                                                        ref_obj)]
+        run.update(max_obj_rel_err=max(errs), max_vs_one_process=max(vs))
+        if run["status"] != ["OPTIMAL"] * B_ROW or max(errs) > ROW_OBJ_TOL \
+                or max(vs) > ROW_OBJ_TOL:
+            problems.append(f"{name}: {run['status']}, objectives "
+                            f"{max(errs):.2e} off the optima, {max(vs):.2e} "
+                            f"off the one-process solve")
+        if any(run["launches"][k] == 0 for k in PATH_KERNELS[phase]):
+            problems.append(f"{name}: a kernel of the path was never "
+                            f"launched: {run['launches']}")
+        if any(run["library_calls"][k] for k in FACTOR_CALLS):
+            problems.append(f"{name}: library factor called: "
+                            f"{run['library_calls']}")
+    if ranks[1]["digest"] != ranks[0]["digest"]:
+        problems.append("the two ranks' x differ")
+    res = dict(m=M_ROWS, n=N_COLS, batch=B_ROW, p1=p1, mesh=ranks[0],
+               rank1={k: ranks[1][k] for k in ("seconds", "peak_memory_gib",
+                                               "iterations", "digest")},
+               one_process=dict(status=[q.status_name for q in ref],
+                                iterations=[q.iterations for q in ref]))
+    emit(phase, ok=not problems, **res)
+    if problems:
+        fail(phase, "; ".join(problems))
+    return {"row_sharded": p1["launches"],
+            "row_sharded_mesh": ranks[0]["launches"]}
+
+
 def timed(phase_fn, *args, name=None):
     """Run a phase and print the seconds it took on a line of its own."""
     t0 = time.perf_counter()
@@ -3149,6 +3381,7 @@ def main() -> int:
     # the large single LP and the multi-device code: the small shapes first,
     # then config 4 whole
     by_path["large_group"] = timed(phase_large_group)
+    by_path.update(timed(phase_row_sharded))
     by_path["sharded_schur"] = timed(phase_sharded_schur)
     by_path["large_f32"] = timed(phase_large_f32)
     by_path["large"] = timed(phase_large, rows)
@@ -3176,4 +3409,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--row-sharded-rank"]:
+        sys.exit(row_sharded_child(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -11,7 +11,7 @@ import torch
 
 from ipx_torch import obs
 from ipx_torch.ipm import batched, mehrotra
-from ipx_torch.ipm.state import IPMState
+from ipx_torch.ipm.state import IPMState, select_lanes
 from ipx_torch.numerics import dtype_of
 from ipx_torch.options import DEFAULT_OPTIONS, SolverOptions, check_ported
 from ipx_torch.problem.batching import bucket_lps
@@ -219,10 +219,13 @@ def _maybe_augmented_fallback(lp: LP, st: IPMState,
     return _put(st, idx, _ladder(_lanes(lp, idx), _lanes(st, idx), opts))
 
 
-def _prepare(lps, opts: SolverOptions, device) -> LP:
+def _prepare(lps, opts: SolverOptions, device, p: int = 1) -> LP:
     """The batched LP on ``device``: a bf16-stored A stays as stored (its
     values are exact in f32, and a round trip through f32 would cost a
-    transient copy twice its size); the rest takes the compute dtype."""
+    transient copy twice its size); the rest takes the compute dtype.  Each
+    A holds n / p of its LP's n columns: p > 1 for a row-sharded share, and
+    a column block given as a whole A is refused (a dense route would solve
+    another LP)."""
     check_ported(opts)
     if isinstance(lps, LP):
         blp = lps
@@ -230,6 +233,13 @@ def _prepare(lps, opts: SolverOptions, device) -> LP:
             raise ValueError("batched LP must have A of rank 3 (B, m, n)")
     else:
         blp = batched.stack_lps(lps)
+    n = blp.c.shape[-1]
+    if blp.A.shape[-1] * p != n:
+        raise ValueError(
+            f"A holds {blp.A.shape[-1]} columns of an LP with n={n}: "
+            + ("a column block (a row-sharded share) is solved with its "
+               "mesh, solve_batch(share, mesh=mesh)" if p == 1 else
+               f"a share of a mesh with {p} row shards holds n/{p}"))
     blp = blp.to(device)
     dtype = dtype_of(opts.dtype)
     keep_a = blp.A.dtype == torch.bfloat16 and opts.a_storage == "bfloat16"
@@ -238,7 +248,7 @@ def _prepare(lps, opts: SolverOptions, device) -> LP:
 
 
 def solve_batch(lps, options: Optional[SolverOptions] = None,
-                device="cuda") -> list:
+                device="cuda", *, mesh=None) -> list:
     """Solve a batch of same-shape LPs in one batched run on ``device``.
 
     ``lps`` is a sequence of single-instance :class:`LP` or an already
@@ -246,8 +256,24 @@ def solve_batch(lps, options: Optional[SolverOptions] = None,
     in input order.  With ``augmented_fallback`` (the default) on the dense
     route, lanes that end STALLED or NUMERICAL_FAILURE are rescued
     (:func:`_rescue_batch`).
+
+    With a ``mesh`` whose "row" axis has p > 1 (config 5), ``lps`` is this
+    rank's ``mesh.batch_lp_sharding`` share: its lanes, each A's column
+    block.  The lanes run together on the sharded Schur route (``"sharded"``
+    unless ``"sharded_schur"`` is asked for), the normal equations across
+    the row group's ranks, and a STALLED, MAX_ITER or NUMERICAL_FAILURE
+    lane gets :func:`solve_large`'s endgame (:func:`_sharded_endgame`).
+    Every rank of a row group returns the same Solutions of its lanes; the
+    caller gathers them over the "batch" group.  At p = 1 the mesh plays a part
+    only when a sharded ``linsys`` is asked for (the same route in one
+    process); without a mesh a sharded route raises, as it needs one.
     """
     opts = options or DEFAULT_OPTIONS
+    if mesh is not None:
+        from ipx_torch import mesh as meshlib
+        p = mesh.shape[meshlib.ROW_AXIS]
+        if p > 1 or opts.linsys.startswith("sharded"):
+            return _solve_row_sharded(lps, opts, device, mesh, p)
     blp = _prepare(lps, opts, device)
     # run_batch applies a_storage itself; the reported metrics are taken
     # against the instance as given, as in ``ipx``
@@ -255,6 +281,33 @@ def solve_batch(lps, options: Optional[SolverOptions] = None,
     if opts.augmented_fallback and opts.linsys == "dense":
         st = _rescue_batch(blp, st, opts)
     return _states_to_solutions(blp, st)
+
+
+def _sharded_route(opts: SolverOptions) -> SolverOptions:
+    """The options of the sharded Schur route: ``"sharded"`` unless
+    ``"sharded_schur"`` is asked for."""
+    if opts.linsys not in ("sharded", "sharded_schur"):
+        opts = opts.replace(linsys="sharded")
+    check_ported(opts)
+    return opts
+
+
+def _solve_row_sharded(lps, opts: SolverOptions, device, mesh,
+                       p: int) -> list:
+    """:func:`solve_batch` of this rank's share on the sharded route of a
+    mesh with p row shards (its column blocks made contiguous once: the
+    products and the assembly read them every step)."""
+    from ipx_torch.linsys import schur
+    opts = _sharded_route(opts)
+    blp = _prepare(lps, opts, device, p=p)
+    blp = LP(c=blp.c, A=blp.A.contiguous(), b=blp.b,
+             obj_offset=blp.obj_offset)
+    if blp.m % p:
+        raise ValueError(f"m={blp.m} is not divisible by the mesh's {p} row "
+                         "shards")
+    with schur.use_mesh(mesh):
+        st = _sharded_endgame(blp, _run_batch(blp, opts), opts)
+        return _sharded_solutions(blp, st)
 
 
 def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
@@ -585,10 +638,7 @@ def solve_large(c, A=None, b=None, mesh=None,
     from ipx_torch import mesh as meshlib
     from ipx_torch.linsys import schur
 
-    opts = options or DEFAULT_OPTIONS
-    if opts.linsys not in ("sharded", "sharded_schur"):
-        opts = opts.replace(linsys="sharded")
-    check_ported(opts)
+    opts = _sharded_route(options or DEFAULT_OPTIONS)
     if mesh is None:
         world = (torch.distributed.get_world_size()
                  if torch.distributed.is_available()
@@ -596,17 +646,43 @@ def solve_large(c, A=None, b=None, mesh=None,
         mesh = meshlib.make_mesh(batch=1, row=world)
     lp = _large_share(c, A, b, mesh, opts, device)
     with schur.use_mesh(mesh):
-        st = _run_stage(lp, opts, exec_chunk_iters)
-        bad = int(st.status) in (int(Status.STALLED), int(Status.MAX_ITER),
-                                 int(Status.NUMERICAL_FAILURE))
-        if bad and opts.augmented_fallback and opts.linsys == "sharded":
-            sch = opts.replace(linsys="sharded_schur")
-            state0 = mehrotra.warm_start_state(lp, st.best_x, st.best_y,
-                                               st.best_s, sch)
-            st2 = _run_stage(lp, sch, exec_chunk_iters, state0)
-            if float(st2.best_merit) < float(st.best_merit):
-                st = dataclasses.replace(st2, it=st.it + st2.it)
-        return _large_solution(lp, st)
+        st = _sharded_endgame(lp, _run_stage(lp, opts, exec_chunk_iters),
+                              opts, exec_chunk_iters)
+        return _sharded_solutions(lp, st)[0]
+
+
+# the statuses after which the sharded routes run their endgame: the dense
+# route's rescue statuses and MAX_ITER, where stage 1 on "sharded" crawls
+_ENDGAME = _RESCUE + (int(Status.MAX_ITER),)
+
+
+def _sharded_endgame(lp: LP, st: IPMState, opts: SolverOptions,
+                     chunk: int = 0) -> IPMState:
+    """The sharded routes' rescue: the lanes that ended STALLED, MAX_ITER
+    or NUMERICAL_FAILURE run again as one batch on ``"sharded_schur"`` (the
+    augmented system's Schur form on the distributed factor), warm-started
+    from their best iterates, and each keeps that stage if its best merit is
+    lower, with the iterations of both.  Only after ``"sharded"`` with
+    ``augmented_fallback``.  Every rank of a row group reads the same
+    statuses, so they run the same stage."""
+    if not (opts.augmented_fallback and opts.linsys == "sharded"):
+        return st
+    bad = [i for i, code in enumerate(st.status.tolist()) if code in _ENDGAME]
+    if not bad:
+        return st
+    whole = len(bad) == st.status.shape[0]
+    idx = torch.tensor(bad, device=st.it.device)
+    # all lanes: no gather (at config 4 a copy of A's block is 4.3 GB)
+    sub_lp, sub_st = (lp, st) if whole else (_lanes(lp, idx), _lanes(st, idx))
+    sch = opts.replace(linsys="sharded_schur")
+    state0 = mehrotra.warm_start_state(sub_lp, sub_st.best_x, sub_st.best_y,
+                                       sub_st.best_s, sch)
+    res = _run_stage(sub_lp, sch, chunk, state0)
+    res = dataclasses.replace(res, it=sub_st.it + res.it)
+    keep = res.best_merit < sub_st.best_merit
+    if whole:
+        return select_lanes(keep, res, st)
+    return _put(st, idx[keep], _lanes(res, keep))
 
 
 def _large_share(c, A, b, mesh, opts: SolverOptions, device) -> LP:
@@ -660,26 +736,33 @@ def _run_stage(lp: LP, opts: SolverOptions, chunk: int,
     return st
 
 
-def _large_solution(lp: LP, st: IPMState) -> Solution:
-    """The Solution of :func:`solve_large`, the same on every rank: the best
-    iterate, its residuals measured in float64 through the ranks' products
-    (the host never holds A)."""
+def _sharded_solutions(lp: LP, st: IPMState) -> list:
+    """The Solutions of the sharded routes, one a lane, the same on every
+    rank of a row group: the best iterate, its residuals measured in
+    float64 through the ranks' products (the host never holds A)."""
     from ipx_torch.linsys import schur
     f64 = torch.float64
     x, y, s = (t.to(f64) for t in (st.best_x, st.best_y, st.best_s))
     c, b = lp.c.to(f64), lp.b.to(f64)
     fwd, tr = schur.matvecs(lp.A, wide=True)
-    rp = (fwd(x) - b).abs().max()
-    rd = (tr(y) + s - c).abs().max()
-    X, Y, S = (_host64(t)[0] for t in (x, y, s))
-    C, Bv = _host64(c)[0], _host64(b)[0]
-    off = float(_host64(lp.obj_offset)[0])
-    pobj = float(C @ X)
-    return Solution(
-        x=X, y=Y, s=S, objective=pobj + off,
-        dual_objective=float(Bv @ Y) + off,
-        status=int(st.status[0]), iterations=int(st.it[0]),
-        rel_gap=float((X @ S) / (1 + abs(pobj))),
-        rp_rel=float(rp) / (1 + float(np.abs(Bv).max(initial=0.0))),
-        rd_rel=float(rd) / (1 + float(np.abs(C).max(initial=0.0))),
-        trace=_host64(st.trace)[0])
+    rp = _host64((fwd(x) - b).abs().amax(-1))
+    rd = _host64((tr(y) + s - c).abs().amax(-1))
+    X, Y, S = (_host64(t) for t in (x, y, s))
+    C, Bv = _host64(c), _host64(b)
+    off = _host64(lp.obj_offset)
+    status = st.status.to("cpu").numpy()
+    its = st.it.to("cpu").numpy()
+    trace = _host64(st.trace)
+    sols = []
+    for i in range(X.shape[0]):
+        pobj = float(C[i] @ X[i])
+        bmax = float(np.abs(Bv[i]).max(initial=0.0))
+        cmax = float(np.abs(C[i]).max(initial=0.0))
+        sols.append(Solution(
+            x=X[i], y=Y[i], s=S[i], objective=pobj + float(off[i]),
+            dual_objective=float(Bv[i] @ Y[i]) + float(off[i]),
+            status=int(status[i]), iterations=int(its[i]),
+            rel_gap=float((X[i] @ S[i]) / (1 + abs(pobj))),
+            rp_rel=float(rp[i]) / (1 + bmax),
+            rd_rel=float(rd[i]) / (1 + cmax), trace=trace[i]))
+    return sols

@@ -12,6 +12,8 @@ leading batch dimension.  All instances in a batch share (m, n).
 """
 from __future__ import annotations
 
+import contextvars
+
 import torch
 
 from ipx_torch.ipm import mehrotra
@@ -21,6 +23,50 @@ from ipx_torch.numerics import vdot
 from ipx_torch.options import SolverOptions, check_ported
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
+
+
+# ``obs.debug_mode`` sets "raise", ``obs.checked_solve`` a list that takes
+# the first failure's message; None (the default) tests nothing.
+FINITE_CHECK: contextvars.ContextVar = contextvars.ContextVar(
+    "ipx_torch_finite_check", default=None)
+
+
+def _step(lp: LP, st: IPMState, opts: SolverOptions, fac_aat, fac=None,
+          boost0=None) -> IPMState:
+    """One masked step (``mehrotra.step_masked``, or with ``boost0`` a
+    refactor block's trailing stale step) and, under FINITE_CHECK, the test
+    of its named values (``mehrotra.STEP_VALUES``) on the lanes it steps:
+    one host read.  The first non-finite value, in the order the step makes
+    them, lowest lane first, raises FloatingPointError naming the
+    iteration, the lane and the field, or is recorded (the first only)."""
+    def step():
+        if boost0 is None:
+            return mehrotra.step_masked(lp, st, opts, fac_aat, fac)
+        return mehrotra.step_masked_stale(lp, st, opts, fac_aat, fac, boost0)
+
+    mode = FINITE_CHECK.get()
+    if mode is None or (isinstance(mode, list) and mode):
+        return step()
+    kept = {}
+    tok = mehrotra.STEP_VALUES.set(kept)
+    try:
+        new = step()
+    finally:
+        mehrotra.STEP_VALUES.reset(tok)
+    active = (st.status == int(Status.RUNNING)) & (st.it < opts.max_iter)
+    if boost0 is not None:
+        active &= st.reg_boost <= boost0
+    finite = torch.stack([torch.isfinite(v.reshape(v.shape[0], -1)).all(-1)
+                          for v in kept.values()])          # (fields, B)
+    bad = (~finite & active).cpu()
+    if bad.any():
+        f, lane = (int(i) for i in torch.nonzero(bad)[0])
+        msg = (f"iteration {int(st.it[lane])}, lane {lane}: non-finite "
+               f"{list(kept)[f]}")
+        if mode == "raise":
+            raise FloatingPointError(msg)
+        mode.append(msg)
+    return new
 
 
 def stack_lps(lps) -> LP:
@@ -65,6 +111,9 @@ def run_batch(lp: LP, opts: SolverOptions,
     With ``refactor_period = k > 1`` a body factors once and takes k steps:
     the first fresh, the k - 1 trailing ones with that factor as a stale
     preconditioner and ``stale_solve_cg`` CG iterations.
+
+    Under ``obs.debug_mode`` or ``obs.checked_solve`` each step's values
+    are tested for non-finite entries (:func:`_step`).
     """
     check_ported(opts)
     lp = lp.with_a_storage(opts)
@@ -77,15 +126,14 @@ def run_batch(lp: LP, opts: SolverOptions,
     running = int(Status.RUNNING)
     while bool(((st.status == running) & (st.it < opts.max_iter)).any()):
         if opts.refactor_period == 1:
-            st = mehrotra.step_masked(lp, st, opts, fac_aat)
+            st = _step(lp, st, opts, fac_aat)
             continue
         boost0 = st.reg_boost
         fac = normal_eq.factor(lp.A, st.x / st.s, opts,
                                reg_scale=st.reg_boost)
-        st = mehrotra.step_masked(lp, st, opts, fac_aat, fac)
+        st = _step(lp, st, opts, fac_aat, fac)
         for _ in range(opts.refactor_period - 1):
-            st = mehrotra.step_masked_stale(lp, st, stale, fac_aat, fac,
-                                            boost0)
+            st = _step(lp, st, stale, fac_aat, fac, boost0)
     return mehrotra.finalize_status(st, opts)
 
 

@@ -13,6 +13,7 @@ Algorithm (Mehrotra 1992; Nocedal & Wright ch. 14):
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 
 import torch
@@ -24,6 +25,31 @@ from ipx_torch.numerics import inf_norm, mv, mv_wide, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
+
+
+# A dict into which each step puts its named values (``obs.debug_mode``,
+# ``obs.checked_solve``, read by ``batched.run_batch``), or None, the
+# default: nothing is kept.
+STEP_VALUES: contextvars.ContextVar = contextvars.ContextVar(
+    "ipx_torch_step_values", default=None)
+
+
+def _factor_diagonal(fac) -> torch.Tensor:
+    """(B, k): the diagonal of a step's factor on any route, whole on every
+    rank (on the sharded route the diagonals of W, the inverses of L's
+    diagonal blocks, which every rank holds)."""
+    if isinstance(fac, augmented.AugSchurFactor):
+        return _factor_diagonal(fac.ne)
+    if isinstance(fac, augmented.AugFactor):
+        return torch.diagonal(fac.lu, dim1=-2, dim2=-1)
+    if isinstance(fac, schur.SchurFactor):
+        return torch.diagonal(fac.W, dim1=-2, dim2=-1).flatten(1)
+    if fac.LT is not None:
+        return torch.diagonal(fac.LT, dim1=-2, dim2=-1)
+    if fac.LTp:
+        return torch.cat([torch.diagonal(p[:, :, :p.shape[1]], dim1=-2,
+                                         dim2=-1) for p in fac.LTp], dim=-1)
+    return torch.diagonal(fac.L, dim1=-2, dim2=-1)
 
 
 def _col(a: torch.Tensor) -> torch.Tensor:
@@ -361,6 +387,13 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     x_new = torch.clamp(x + _col(alpha_p) * dx, min=opts.pos_floor)
     y_new = y + _col(alpha_d) * dy
     s_new = torch.clamp(s + _col(alpha_d) * ds, min=opts.pos_floor)
+    kept = STEP_VALUES.get()
+    if kept is not None:
+        # in the order they are made; the iterate before the recovery
+        # below puts back the last good one
+        kept.update(factor_diagonal=_factor_diagonal(fac), dx=dx, dy=dy,
+                    ds=ds, alpha_p=alpha_p, alpha_d=alpha_d, x=x_new,
+                    y=y_new, s=s_new)
 
     # --- convergence / failure bookkeeping -----------------------------------
     rp_n, rd_n, mu_n, rp_rel, rd_rel, rel_gap, pobj = _scalars(

@@ -2,9 +2,10 @@
 
 Mesh axes:
   "batch"  data-parallel over independent LP instances (config 5)
-  "row"    the large dimension of one LP: the columns of A for the
+  "row"    the large dimension of each LP: the columns of A for the
            normal-matrix assembly, row panels of the normal matrix for the
-           distributed factor (config 4, ``linsys/schur.py``)
+           distributed factor (``linsys/schur.py``; config 4, and config 5
+           with row > 1)
 
 One process drives one device.  Ranks join through
 :func:`init_distributed` (``torch.distributed`` over TCP: NCCL between
@@ -114,18 +115,28 @@ def large_lp_sharding(mesh: Mesh, n: int) -> dict:
                 b=slice(None), obj_offset=())
 
 
-def batch_lp_sharding(mesh: Mesh, batch: int) -> dict:
+def batch_lp_sharding(mesh: Mesh, batch: int, n: Optional[int] = None
+                      ) -> dict:
     """What this rank holds of a batch of LPs (config 5), as an index per
-    field: its share of the instances over BATCH_AXIS.  ``ipx`` also shards
-    each A's rows over ROW_AXIS; that is not carried yet."""
-    if mesh.shape[ROW_AXIS] > 1:
-        raise NotImplementedError(
-            "a batched solve with its rows sharded (row > 1) is not ported "
-            "yet (ROADMAP.md: row-sharded batched solves)")
+    field: its share of the instances over BATCH_AXIS; with a "row" axis
+    of p > 1, each A's column block over ROW_AXIS as
+    :func:`large_lp_sharding` gives it (c, b and the offset whole per lane),
+    which ``solve_batch(share, mesh=mesh)`` solves on the sharded Schur
+    route.  ``ipx`` places each A's rows on ROW_AXIS instead, a placement
+    hint to GSPMD; here A is constant over a solve and every n-vector whole
+    on every rank, so the ranks of a row group hold columns and agree bit
+    for bit.  ``n`` (A's columns) is needed when p > 1."""
     q = mesh.shape[BATCH_AXIS]
     if batch % q:
         raise ValueError(f"batch {batch} is not divisible by the mesh's "
                          f"{q} batch shards")
     lo = mesh.coords[BATCH_AXIS] * (batch // q)
     lanes = slice(lo, lo + batch // q)
-    return dict(c=lanes, A=lanes, b=lanes, obj_offset=lanes)
+    A = lanes
+    p = mesh.shape[ROW_AXIS]
+    if p > 1:
+        if n is None or n % p:
+            raise ValueError(f"n={n} is not divisible by the mesh's {p} row "
+                             "shards")
+        A = (lanes,) + large_lp_sharding(mesh, n)["A"]
+    return dict(c=lanes, A=A, b=lanes, obj_offset=lanes)

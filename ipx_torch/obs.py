@@ -11,6 +11,8 @@ The solve loop carries a bounded trace buffer in ``IPMState`` (rendered by
   * ``timed_section`` / ``trace_to``: wall timing and ``torch.profiler``
     capture around a region.
   * ``solve_with_snapshots``: a solve checkpointed every k iterations.
+  * ``debug_mode`` / ``checked_solve``: every step's named values tested
+    for non-finite entries, raised or recorded.
 """
 from __future__ import annotations
 
@@ -171,3 +173,65 @@ def solve_with_snapshots(c, A=None, b=None, options=None, *,
         if sol.status != int(Status.MAX_ITER):
             break
     return sol
+
+
+# ---------------------------------------------------------------------------
+# non-finite checks
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def debug_mode():
+    """NaN-strict execution for debugging solver numerics.
+
+    While on, every step of every solve in this context
+    (``ipm.batched.run_batch``) tests the factor's diagonal, the direction
+    (dx, dy, ds), the step lengths and the new iterate of each lane it
+    steps, and raises ``FloatingPointError`` naming the iteration, the lane
+    and the field at the first non-finite value: one host read a step.
+    Only for debugging: it conflicts with the solver's own deliberate NaN
+    recovery (reg_boost), so expect a failing factorization to raise
+    instead of recover.  Off (the default) nothing is tested or kept."""
+    from ipx_torch.ipm import batched
+    tok = batched.FINITE_CHECK.set("raise")
+    try:
+        yield
+    finally:
+        batched.FINITE_CHECK.reset(tok)
+
+
+@dataclass
+class CheckError:
+    """What :func:`checked_solve` found: the first non-finite value's
+    message, or None."""
+    message: Optional[str] = None
+
+    def get(self) -> Optional[str]:
+        return self.message
+
+    def throw(self) -> None:
+        if self.message is not None:
+            raise FloatingPointError(self.message)
+
+
+def checked_solve(lp, options=None):
+    """Run one solve with :func:`debug_mode`'s checks recorded instead of
+    raised: every non-finite value a step makes is captured as a raisable
+    error instead of flowing silently into the recovery logic.  Debug tool:
+    returns ``(err, IPMState)`` (a batch of one); ``err.get()`` is the first
+    failure's message or None, ``err.throw()`` raises it.  It runs on the
+    device ``lp`` lives on, the solve loop as a batch of one without the
+    rescue ladder; on a healthy instance the state is a plain run's, bit
+    for bit."""
+    from ipx_torch.api import _prepare
+    from ipx_torch.ipm import batched
+    from ipx_torch.options import SolverOptions
+
+    opts = options or SolverOptions()
+    blp = _prepare([lp], opts, lp.c.device)
+    found: list = []
+    tok = batched.FINITE_CHECK.set(found)
+    try:
+        st = batched.run_batch(blp, opts)
+    finally:
+        batched.FINITE_CHECK.reset(tok)
+    return CheckError(found[0] if found else None), st

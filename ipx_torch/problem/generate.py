@@ -2,7 +2,8 @@
 
 Sample a strictly complementary primal-dual pair (x*, y*, s*) and construct
 (b, c) from it, so the optimal objective c@x* is known by construction and
-serves as a test oracle.  ``random_feasible_lp`` is the host (numpy) form;
+serves as a test oracle.  ``random_feasible_lp`` is the host (numpy) form,
+``random_feasible_batch`` a list of such instances;
 ``random_feasible_batch_device`` makes a whole batch on the device,
 ``random_feasible_large_device`` one large LP there (config 4).
 ``random_general_lp`` makes a general LP (inequalities, bounds, free
@@ -71,6 +72,12 @@ def random_feasible_lp(
     obj_star = float(c @ x_star)
     return GeneratedLP(c=c, A=A, b=b, x_star=x_star, y_star=y_star,
                        s_star=s_star, obj_star=obj_star)
+
+
+def random_feasible_batch(batch: int, m: int, n: int, seed: int = 0,
+                          **kw) -> list[GeneratedLP]:
+    """A list of independent instances (stacked by the caller)."""
+    return [random_feasible_lp(m, n, seed=seed + i, **kw) for i in range(batch)]
 
 
 def random_general_lp(seed: int = 0, n: int = 40, m_eq: int = 8,

@@ -61,23 +61,23 @@ def main() -> int:
     v = torch.randn(1, a.m, device="cuda")
     mesh = meshlib.make_mesh()
     with schur.use_mesh(mesh):
-        out["diag_ms"] = time_ms(lambda: schur._diag_scan(A[0], d2[0]),
+        out["diag_ms"] = time_ms(lambda: schur._diag_scan(A, d2),
                                  reps=2, warm=1)
         out["assemble_ms"] = time_ms(lambda: pk.assemble_sym_batched(A, d2),
                                      reps=2, warm=1)
-        j = torch.rsqrt(schur._diag_scan(A[0], d2[0]))
+        j = torch.rsqrt(schur._diag_scan(A, d2))
         M = pk.assemble_sym_batched(A, d2)
-        M.mul_(j[:, None]).mul_(j[None, :])
+        M.mul_(j[:, :, None]).mul_(j[:, None, :])
         M.diagonal(dim1=1, dim2=2).add_(ipx_torch.SolverOptions().reg)
         out["factor_ms"] = time_ms(lambda: pk.factor_lt_batched(M), reps=2,
                                    warm=0)
         LT, W = pk.factor_lt_batched(M)
         del M
-        fac = schur.SchurFactor(L=LT[0], W=W[0], j=j.unsqueeze(0), d2=d2,
+        fac = schur.SchurFactor(L=LT, W=W, j=j, d2=d2,
                                 ok=torch.ones(1, dtype=torch.bool,
                                               device="cuda"))
         row = schur._row()
-        out["precond_ms"] = time_ms(lambda: schur._precond(fac, v[0], row),
+        out["precond_ms"] = time_ms(lambda: schur._precond(fac, v, row),
                                     reps=3, warm=1)
         del fac, LT, W
         out["a_w_ms"] = time_ms(lambda: mv(A, w), reps=3, warm=1)

@@ -73,6 +73,42 @@ def test_exports_match_ipx():
     assert all(hasattr(ipx_torch, name) for name in ipx_torch.__all__)
 
 
+def test_problem_exports_match_ipx():
+    """``ipx_torch.problem`` exports what ``ipx.problem`` does, among them
+    ``random_feasible_lp`` and ``random_feasible_batch``; so does ``obs``
+    with ``debug_mode`` and ``checked_solve``, under ``ipx``'s parameter
+    names."""
+    import inspect
+    import ipx.obs
+    import ipx.problem
+    import ipx_torch.obs
+    import ipx_torch.problem
+
+    def public(mod):
+        return {k for k in vars(mod) if not k.startswith("_")
+                and not inspect.ismodule(getattr(mod, k))}
+    assert public(ipx_torch.problem) == public(ipx.problem)
+    for name in ("debug_mode", "checked_solve"):
+        got, ref = (inspect.signature(getattr(mod, name)).parameters
+                    for mod in (ipx_torch.obs, ipx.obs))
+        assert list(got) == list(ref), name
+
+
+def test_random_feasible_batch_matches_ipx():
+    """The same list of instances as ``ipx``'s, bit for bit, keywords
+    passed through."""
+    import numpy as np
+    from ipx.problem import random_feasible_batch as jb
+    from ipx_torch.problem import random_feasible_batch as tb
+    for kw in ({}, dict(support=5, scale_spread=1.0)):
+        got, ref = tb(3, 8, 16, seed=4, **kw), jb(3, 8, 16, seed=4, **kw)
+        assert len(got) == len(ref) == 3
+        for a, b in zip(got, ref):
+            for f in ("c", "A", "b", "x_star", "y_star", "s_star"):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), f
+            assert a.obj_star == b.obj_star
+
+
 def test_options_same_fields_defaults_and_throughput():
     import dataclasses
     fj = {f.name: f.default for f in dataclasses.fields(ipx.SolverOptions)}

@@ -1,6 +1,8 @@
 """The large single LP and the multi-device routes of ipx_torch on the CPU:
 ``linsys="sharded"`` and ``"sharded_schur"`` (``linsys/schur.py``),
-``solve_large`` and config 5's batch-sharded solve (``mesh.py``).
+``solve_large`` and config 5 (``mesh.py``): a batch split over the "batch"
+axis, and each A split over the "row" axis (``solve_batch(share,
+mesh=mesh)``, the sharded route over a batch of lanes).
 
 p = 1 runs in this process.  p = 2 (the 128-blocked diagonal path: the
 factor at m = 512, two blocks a rank; the solves at m = 256) and p = 4 (m =
@@ -16,8 +18,10 @@ scaled, regularized matrix within 1e-5 (f32 factor); a solve against the f64
 solve of the same system and against the port's dense route within 1e-4 of
 its largest entry (3 CG steps preconditioned by an exact f32 factor); an
 OPTIMAL objective within 5e-6 of the constructed optimum and of the port's
-dense solve (``tests/test_sharded.py``'s limits for ``ipx``).  Every rank's
-solution is held bit for bit to rank 0's.
+dense solve (``tests/test_sharded.py``'s limits for ``ipx``); config 5 with
+row > 1 within 1e-4 of the optima and 1e-5 of ``ipx``'s row = 2 solve
+(``__graft_entry__.dryrun_multichip``'s limits).  Every rank's solution is
+held bit for bit to rank 0's (config 5: to its row group's).
 """
 import datetime
 import hashlib
@@ -52,6 +56,13 @@ GROUP_TIMEOUT = datetime.timedelta(seconds=60)
 LAUNCHES = {2: 256, 4: 64}
 FACTOR_M = {2: 512, 4: 64}
 CROSS_LP = dict(m=64, n=128, seed=1)     # the cross-package LP
+# config 5 with row > 1: dryrun_multichip's shape and options, a batch of 4
+ROW_LP = dict(m=32, n=64)
+ROW_BATCH = 4
+ROW_MAX_ITER = 40
+# a degenerate lane (support 28 < m) that ends stage 1 STALLED and the
+# endgame ends OPTIMAL, in a batch of the first three ROW_LP instances
+DEGENERATE_LP = dict(m=32, n=64, seed=3, support=28)
 
 
 # --------------------------------------------------------------------------
@@ -85,7 +96,7 @@ def _factor_solve(mesh, m: int, seed: int = 5) -> dict:
     with schur.use_mesh(mesh):
         fac = normal_eq.factor(A_loc, d2t, opts)
         y = normal_eq.solve(fac, A_loc, rt, opts)[0]
-        rows = schur._all_gather_rows(fac.L, schur._row())
+        rows = schur._all_gather_rows(fac.L, schur._row())[0]
     L = (rows.T if p == 1 else rows).double().numpy()
     j = fac.j[0].double().numpy()
     M = (A * d2) @ A.T
@@ -160,15 +171,53 @@ def _solves(mesh, m: int) -> dict:
 
 
 def _solve_share(lps, mesh, opts) -> list:
-    """Config 5 as ``ipx``'s distributed worker drives it: this rank solves
-    its ``batch_lp_sharding`` share with ``solve_batch`` and the solutions
-    are gathered over the "batch" group, so every rank holds all of them."""
-    share = lps[meshlib.batch_lp_sharding(mesh, len(lps))["A"]]
-    sols = ipx_torch.solve_batch(share, options=opts, device="cpu")
+    """Config 5 as a caller drives it: this rank solves its
+    ``batch_lp_sharding`` share (with row > 1 each A's column block) with
+    ``solve_batch`` and the solutions are gathered over the "batch" group,
+    so every rank holds all of them."""
+    blp = ipx_torch.api.batched.stack_lps(lps)
+    idx = meshlib.batch_lp_sharding(mesh, len(lps), blp.n)
+    share = ipx_torch.LP(**{f: getattr(blp, f)[i] for f, i in idx.items()})
+    sols = ipx_torch.solve_batch(share, options=opts, device="cpu", mesh=mesh)
     parts = [None] * mesh.shape[meshlib.BATCH_AXIS]
     torch.distributed.all_gather_object(
         parts, sols, group=mesh.groups[meshlib.BATCH_AXIS])
     return [sol for part in parts for sol in part]
+
+
+def _row_lps(degenerate: bool = False):
+    """The config-5 batch (``ROW_LP``, seeds 0..3), or its first three with
+    ``DEGENERATE_LP`` last -> (generated, LPs)."""
+    gs = [random_feasible_lp(**ROW_LP, seed=s) for s in range(ROW_BATCH)]
+    if degenerate:
+        gs[-1] = random_feasible_lp(**DEGENERATE_LP)
+    return gs, [ipx_torch.make_lp(q.c, q.A, q.b, dtype=torch.float32,
+                                  device="cpu") for q in gs]
+
+
+def _row_sharded(mesh, degenerate: bool = False) -> dict:
+    """Config 5 on ``mesh`` with its row axis > 1, the endgame armed; the
+    statuses of every run of the solve loop recorded (stage 1, then the
+    endgame's lanes)."""
+    gs, lps = _row_lps(degenerate)
+    runs, run = [], ipx_torch.api._run_batch
+
+    def recorded(lp, opts, state0=None):
+        st = run(lp, opts, state0)
+        runs.append(dict(linsys=opts.linsys, status=st.status.tolist()))
+        return st
+    ipx_torch.api._run_batch = recorded
+    try:
+        sols = _solve_share(lps, mesh,
+                            ipx_torch.SolverOptions(max_iter=ROW_MAX_ITER))
+    finally:
+        ipx_torch.api._run_batch = run
+    return dict(
+        status=[q.status_name for q in sols],
+        objective=[q.objective for q in sols],
+        err=[abs(q.objective - g.obj_star) / (1 + abs(g.obj_star))
+             for q, g in zip(sols, gs)],
+        lane_digests=[_digest(q.x, q.y, q.s) for q in sols], runs=runs)
 
 
 def _worker(rank: int, world: int, port: int) -> dict:
@@ -201,11 +250,10 @@ def _worker(rank: int, world: int, port: int) -> dict:
             err=[abs(s.objective - q.obj_star) / (1 + abs(q.obj_star))
                  for s, q in zip(sols, gs)],
             digest=_digest(*[s.x for s in sols]))
-        try:
-            _solve_share(lps, mesh, ipx_torch.SolverOptions(max_iter=32))
-            res["row_refused"] = "accepted"
-        except NotImplementedError as e:
-            res["row_refused"] = str(e)
+        res["row"] = _row_sharded(mesh)
+        res["row_degenerate"] = _row_sharded(mesh, degenerate=True)
+    if world == 4:
+        res["row_2x2"] = _row_sharded(meshlib.make_mesh(batch=2, row=2))
     torch.distributed.destroy_process_group()
     return res
 
@@ -359,14 +407,6 @@ def test_batch_sharded_solve_two_ranks(ranks):
     assert b[0]["digest"] == b[1]["digest"]
 
 
-def test_row_sharded_batch_refused(ranks):
-    assert "ROADMAP.md" in ranks[2][0]["row_refused"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        meshlib.batch_lp_sharding(meshlib.Mesh(
-            shape={"batch": 1, "row": 2}, coords={"batch": 0, "row": 0},
-            groups={"batch": None, "row": None}), 4)
-
-
 def test_cross_package_solve_large_matches_ipx(ranks):
     """The same seeded LP through ``ipx.solve_large`` on a row = 2 mesh of
     the virtual CPU devices and through the port on two gloo ranks, the
@@ -385,6 +425,149 @@ def test_cross_package_solve_large_matches_ipx(ranks):
     assert got["status"] == ref.status_name == "OPTIMAL"
     assert abs(got["objective"] - ref.objective) <= (
         1e-6 * (1 + abs(ref.objective))), (got, ref.objective)
+
+
+def _ipx_row_sharded():
+    """``ipx``'s batched solve of the ROW_LP batch jitted on a (1, 2) mesh
+    of the virtual CPU devices, A placed P("batch", "row", None), as
+    ``__graft_entry__.dryrun_multichip`` runs it -> (objectives, statuses)
+    of the final iterates."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    import ipx
+    from ipx.ipm import batched
+    from ipx.problem.lp import make_lp
+
+    if len(jax.devices()) < 2:
+        pytest.fail("needs 2 virtual CPU devices (tests/conftest.py sets 8)")
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("batch", "row"))
+    gs, _ = _row_lps()
+    blp = batched.stack_lps([make_lp(g.c, g.A, g.b) for g in gs]
+                            ).astype(jnp.float32)
+    sh = type(blp)(c=NamedSharding(mesh, P("batch", None)),
+                   A=NamedSharding(mesh, P("batch", "row", None)),
+                   b=NamedSharding(mesh, P("batch", "row")),
+                   obj_offset=NamedSharding(mesh, P("batch")))
+    blp = jax.tree_util.tree_map(jax.device_put, blp, sh)
+    opts = ipx.SolverOptions(dtype="float32", max_iter=ROW_MAX_ITER)
+    st = jax.jit(batched.run_batch, static_argnums=(1,))(blp, opts)
+    obj = np.asarray(jnp.einsum("bj,bj->b", blp.c, st.x), np.float64)
+    return obj, [int(v) for v in np.asarray(st.status)]
+
+
+def test_row_sharded_batch_matches_ipx(ranks):
+    """Config 5 on a (1, 2) mesh, each A's column block on each rank: all
+    four OPTIMAL within 1e-4 of the constructed optima and 1e-5 of ``ipx``'s
+    solve on a row = 2 mesh (one compile, about 5 s on a quiet machine);
+    both ranks return the same bits."""
+    rows = [r["row"] for r in ranks[2]]
+    got = rows[0]
+    assert got["status"] == ["OPTIMAL"] * ROW_BATCH, got
+    assert max(got["err"]) <= 1e-4, got
+    ref, status = _ipx_row_sharded()
+    assert status == [int(ipx_torch.Status.OPTIMAL)] * ROW_BATCH
+    rel = np.abs(np.array(got["objective"]) - ref) / (1 + np.abs(ref))
+    assert rel.max() <= 1e-5, (got["objective"], ref)
+    assert rows[1]["lane_digests"] == got["lane_digests"]
+
+
+def test_row_sharded_endgame_rescues_degenerate_lane(ranks):
+    """A degenerate lane among three healthy ones on the (1, 2) mesh: stage
+    1 ("sharded") ends it STALLED and runs the others to OPTIMAL; the
+    endgame runs that lane alone on "sharded_schur" and ends it OPTIMAL
+    within 1e-4 of its optimum, the others untouched; both ranks agree."""
+    rows = [r["row_degenerate"] for r in ranks[2]]
+    got = rows[0]
+    stage1, endgame = got["runs"]
+    assert stage1["linsys"] == "sharded"
+    assert stage1["status"][:3] == [int(ipx_torch.Status.OPTIMAL)] * 3
+    assert stage1["status"][3] == int(ipx_torch.Status.STALLED), got
+    assert endgame == dict(linsys="sharded_schur",
+                           status=[int(ipx_torch.Status.OPTIMAL)]), got
+    assert got["status"] == ["OPTIMAL"] * ROW_BATCH, got
+    assert max(got["err"]) <= 1e-4, got
+    assert got["lane_digests"][:3] == ranks[2][0]["row"]["lane_digests"][:3]
+    assert rows[1] == got
+
+
+def test_row_sharded_2x2_mesh_row_groups_agree(ranks):
+    """Config 5 on a (2, 2) mesh: each batch group solves two lanes across
+    its row pair; every lane OPTIMAL, and the ranks of each row group (ranks
+    0, 1 and 2, 3) return the same bits of their own lanes, gathered on
+    every rank."""
+    rows = [r["row_2x2"] for r in ranks[4]]
+    assert rows[0]["status"] == ["OPTIMAL"] * ROW_BATCH, rows[0]
+    assert max(rows[0]["err"]) <= 1e-4, rows[0]
+    for r in rows[1:]:
+        assert r["lane_digests"] == rows[0]["lane_digests"]
+
+
+def test_row_sharded_2x2_mesh_matches_1x2(ranks):
+    """The gathered (2, 2) result agrees with the (1, 2) run within 1e-6
+    relative on every objective."""
+    a = np.array(ranks[4][0]["row_2x2"]["objective"])
+    b = np.array(ranks[2][0]["row"]["objective"])
+    assert (np.abs(a - b) / (1 + np.abs(b))).max() <= 1e-6, (a, b)
+
+
+def test_sharded_route_batched_one_process():
+    """``linsys="sharded"`` at p = 1 over a batch of three lanes: each lane
+    within 1e-6 of the dense route's objective and of its own run at B = 1,
+    with the same status and iterations (a batched library product may
+    round a lane differently from the unbatched one, so not bit for bit)."""
+    _, lps = _row_lps()
+    lps = lps[:3]
+    O = ipx_torch.SolverOptions
+    opts = O(linsys="sharded", augmented_fallback=False)
+    mesh = meshlib.make_mesh()
+    batch = ipx_torch.solve_batch(lps, options=opts, device="cpu", mesh=mesh)
+    alone = [ipx_torch.solve_batch([lp], options=opts, device="cpu",
+                                   mesh=mesh)[0] for lp in lps]
+    dense = ipx_torch.solve_batch(lps, options=O(augmented_fallback=False),
+                                  device="cpu")
+    for got, one, d in zip(batch, alone, dense):
+        assert got.status_name == one.status_name == "OPTIMAL"
+        assert got.iterations == one.iterations
+        for ref in (one.objective, d.objective):
+            assert abs(got.objective - ref) <= 1e-6 * (1 + abs(ref))
+
+
+def test_batch_lp_sharding_row_axis():
+    """A rank's share on a (2, 2) mesh: its half of the lanes, each A's
+    column block by its row index; c, b and the offset whole per lane.  An
+    n or a batch that the mesh does not divide raises ValueError."""
+    def mesh(b, r):
+        return meshlib.Mesh(shape={"batch": 2, "row": 2},
+                            coords={"batch": b, "row": r},
+                            groups={"batch": None, "row": None})
+    idx = meshlib.batch_lp_sharding(mesh(1, 1), 4, 64)
+    assert idx == dict(c=slice(2, 4), A=(slice(2, 4), slice(None),
+                                         slice(32, 64)),
+                       b=slice(2, 4), obj_offset=slice(2, 4))
+    assert meshlib.batch_lp_sharding(mesh(0, 1), 4, 64)["A"][2] == slice(32,
+                                                                         64)
+    with pytest.raises(ValueError, match="not divisible"):
+        meshlib.batch_lp_sharding(mesh(0, 0), 4, 63)
+    with pytest.raises(ValueError, match="not divisible"):
+        meshlib.batch_lp_sharding(mesh(0, 0), 4)
+    with pytest.raises(ValueError, match="not divisible"):
+        meshlib.batch_lp_sharding(mesh(0, 0), 3, 64)
+
+
+def test_solve_batch_refuses_a_share_without_its_mesh():
+    """A share whose A holds a column block of its LPs, given to solve_batch
+    without its mesh (or with the wrong one), raises ValueError instead of
+    solving another LP."""
+    _, lps = _row_lps()
+    blp = ipx_torch.api.batched.stack_lps(lps)
+    share = ipx_torch.LP(c=blp.c, A=blp.A[:, :, :32].contiguous(), b=blp.b,
+                         obj_offset=blp.obj_offset)
+    with pytest.raises(ValueError, match="mesh"):
+        ipx_torch.solve_batch(share, device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        ipx_torch.solve_batch(share, device="cpu", mesh=meshlib.make_mesh())
 
 
 def test_sharded_needs_an_active_mesh():
