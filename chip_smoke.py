@@ -743,19 +743,24 @@ def phase_kernels() -> dict:
     rows["at_matvec"]["library_ms"] = time_ms(lambda: torch.bmm(v3, Af))
     rows["assemble_sym_batched"]["library_ms"] = time_ms(
         lambda: torch.bmm(Wf, Af.mT), reps=3, warm=1)
-    # row 4's float32-A kernel (throughput() as defined, the padded and
-    # assembled routes) on the same values: two f32 operands, so its bound
-    # counts the products at the six-pass rate
+    # an f32 A (throughput() as defined, the padded and assembled routes,
+    # every front end) on the same values: rows 1-3 read 4 bytes an entry;
+    # row 4 takes two f32 operands, so its bound counts the products at the
+    # six-pass rate
+    bounds32 = _bounds(B_MAIN, 4)
+    f32_calls = _calls(Af, v, w, beta, alpha)
+    for name in matvec_rows:
+        kern, plain = f32_calls[name]
+        slow = name == "assemble_sym_batched"
+        rows[name]["f32_a"] = {
+            "ms": time_ms(kern, **(dict(reps=3, warm=1) if slow else {})),
+            "plain_ms": time_ms(plain, reps=3, warm=1),
+            "library_ms": rows[name]["library_ms"], **bounds32[name]}
     nbytes, _, asm = _matvec_work(B_MAIN, 4)["assemble_sym_batched"]
-    rows["assemble_sym_batched"]["f32_a"] = {
-        "ms": time_ms(lambda: pk.assemble_sym_batched(Af, alpha), reps=3,
-                      warm=1),
-        "plain_ms": time_ms(lambda: pk.assemble_sym_batched_plain(Af, alpha),
-                            reps=3, warm=1),
-        "library_ms": rows["assemble_sym_batched"]["library_ms"],
+    rows["assemble_sym_batched"]["f32_a"].update(
         **_bound(nbytes, 0, chol_flops=asm),
-        "f32_cuda_core_ms": _f32_cuda_core_ms(nbytes, asm)}
-    del A, Af, Wf
+        f32_cuda_core_ms=_f32_cuda_core_ms(nbytes, asm))
+    del A, Af, Wf, f32_calls
     torch.cuda.empty_cache()
     emit("kernels", ok=True, batch_check=B_CHECK, batch_timed=B_MAIN,
          m=M_ROWS, n=N_COLS, tol_vs_plain=TOL_PLAIN, tol_vs_f64=TOL_F64,
@@ -3005,17 +3010,43 @@ def phase_large(rows: dict) -> dict:
     return launched
 
 
-def phase_large_f32() -> dict:
+def _f32_assembly_times(A: torch.Tensor) -> dict:
+    """Row 4 at B = 1 on an f32 A (m, n) with a d2 of one decade: the
+    kernel, its plain version and one library f32 product of the same
+    function (A o d2 formed outside the timed region), beside the bound
+    (``_bound``: two f32 operands, the six-pass rate)."""
+    m, n = A.shape
+    A3 = A.unsqueeze(0)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    d2 = 0.5 + torch.rand(1, n, generator=g, device=DEV)
+    W = A3 * d2.unsqueeze(1)
+    nbytes, _, asm = _assembly_work(1, m, n, 4)
+    out = {"m": m, "n": n, "batch": 1, "a_dtype": str(A.dtype),
+           "ms": time_ms(lambda: pk.assemble_sym_batched(A3, d2), reps=3,
+                         warm=1),
+           "plain_ms": time_ms(
+               lambda: pk.assemble_sym_batched_plain(A3, d2), reps=2, warm=1),
+           "library_ms": time_ms(lambda: torch.matmul(W, A3.mT), reps=2,
+                                 warm=1),
+           **_bound(nbytes, 0, chol_flops=asm)}
+    del W
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_large_f32(rows: dict) -> dict:
     """m=8192, n=16384 with A float32 (row 4's float32 kernel, row 10):
-    ``solve_large`` to OPTIMAL, then with exec_chunk_iters=8, which must
-    give the same status and the objective within 1e-5 relative (what
-    ``tests/test_sharded.py`` asks of ``ipx``); the counts and the held
-    rows 4 and 10 are the first run's."""
+    row 4 timed at this shape; ``solve_large`` to OPTIMAL, then with
+    exec_chunk_iters=8, which must give the same status and the objective
+    within 1e-5 relative (what ``tests/test_sharded.py`` asks of ``ipx``);
+    the counts and the held rows 4 and 10 are the first run's."""
     phase = "large_f32"
     m = M_LARGE_F32
     g = torch.Generator(device=DEV).manual_seed(1)
     lp, star = random_feasible_large_device(m, 2 * m, g, torch.float32,
                                             device=DEV)
+    asm = _f32_assembly_times(lp.A)
+    rows["assemble_sym_batched"]["large_f32_b1"] = asm
     opts = ipx_torch.SolverOptions(dtype="float32")
     res, launched, problems, sol = _large_run(phase, lp, star, opts)
     res2, _, problems2, sol2 = _large_run(phase, lp, star, opts,
@@ -3025,7 +3056,8 @@ def phase_large_f32() -> dict:
             1e-5 * (1 + abs(sol.objective))):
         problems.append(f"chunked {sol2.status_name} {sol2.objective} against "
                         f"{sol.status_name} {sol.objective}")
-    emit(phase, ok=not problems, unchunked=res, chunked=res2)
+    emit(phase, ok=not problems, assembly_times=asm, unchunked=res,
+         chunked=res2)
     if problems:
         fail(phase, "; ".join(problems))
     return launched
@@ -3383,7 +3415,7 @@ def main() -> int:
     by_path["large_group"] = timed(phase_large_group)
     by_path.update(timed(phase_row_sharded))
     by_path["sharded_schur"] = timed(phase_sharded_schur)
-    by_path["large_f32"] = timed(phase_large_f32)
+    by_path["large_f32"] = timed(phase_large_f32, rows)
     by_path["large"] = timed(phase_large, rows)
 
     out = []

@@ -106,16 +106,9 @@ struct Regs {
     static constexpr int producer = WG ? 104 : 56;
 };
 
-// A split part: 128 rows (of the output) x 16 contraction entries, bf16, as
-// 8 x 8 core matrices of 128 contiguous bytes: core (n / 8, kh) at
-// (n / 8) * 256 + kh * 128 bytes, row n % 8 of it 16 bytes further each.
-// wgmma reads it without swizzle (K-major, LBO 128, SBO 256) and ldmatrix
-// reads each core matrix's 8 rows from distinct banks.
-constexpr int PART_E = TILE * CK;                          // 2048 bf16
-constexpr size_t PART_B = size_t(PART_E) * 2;              // 4096
+// the split parts, PART_E, PART_B and SSTAGE_B: mma_common.cuh
 constexpr size_t RAW_OP_B = size_t(TILE) * CK * 4;         // 8192
 constexpr size_t RSTAGE_B = 2 * RAW_OP_B;                  // X then Y
-constexpr size_t SSTAGE_B = 6 * PART_B;                    // 24576
 constexpr size_t PARK_B = size_t(64) * CT * 4;             // 65536
 constexpr size_t SPLIT_OFF = RSTAGES * RSTAGE_B;           // 65536
 constexpr size_t PARK_OFF = SPLIT_OFF + SSTAGES * SSTAGE_B;
@@ -124,6 +117,7 @@ constexpr size_t BAR_OFF = DSUM_OFF + TILE * 4;
 constexpr size_t ACCUM_SMEM = BAR_OFF + 2 * SSTAGES * 8;   // 205360
 static_assert(ACCUM_SMEM <= 227 * 1024, "one block an SM");
 static_assert(PT == TILE, "a producer thread a row of every split part");
+static_assert(PART_E == TILE * CK, "a split part is a tile's rows by a chunk");
 static_assert(CK * TILE / 4 % PT == 0, "a chunk is copied in whole passes");
 // the launch gives every thread 65536 / AT registers, rounded down to 8
 // (168); the handover may only move them: a setmaxnreg.inc that asks for
@@ -134,48 +128,6 @@ static_assert(CT * Regs<true>::consumer + PT * Regs<true>::producer
               && CT * Regs<false>::consumer + PT * Regs<false>::producer
                   <= AT * LAUNCH_REGS,
               "the consumers take no more than the producers give");
-
-// element offset of row n, contraction half kh, in a split part
-__device__ __forceinline__ int core_off(int n, int kh) {
-    return (n >> 3) * 128 + kh * 64 + (n & 7) * 8;
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// release: the warp's shared-memory reads and writes before it are seen by
-// whoever waits on the barrier's phase
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-// acquire: wait for the phase of the given parity to complete
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-    unsigned done;
-    do {
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity)
-                     : "memory");
-    } while (!done);
-}
-
-// the producer warps alone
-__device__ __forceinline__ void producer_sync() {
-    asm volatile("bar.sync 1, %0;\n" :: "n"(PT) : "memory");
-}
-
-template <bool INC, int N>
-__device__ __forceinline__ void set_regs() {
-    if (INC)
-        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-    else
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
 
 // Split the raw chunk (X then Y, float32) into the split stage (X's hi, mid,
 // lo parts, then Y's), producer thread pt taking row pt of every part.  Y's
@@ -218,31 +170,22 @@ __device__ __forceinline__ void split_chunk(const float* raw, bf16* dst,
         }
 }
 
-// The producer warpgroup's loop over nc chunks.  issue(c) asks for raw chunk
-// c (nothing past the last) and commits one cp.async group.  With diag, the
-// producer thread pt also sums the squares of column pt of every X chunk
-// (chains of 8, a prior panel's run, the runs a total), into dsum[pt] before
-// the last chunk is handed over.
+// The producer warpgroup (mma_common.cuh produce): split_chunk on every
+// landed chunk.  With diag, the producer thread pt also sums the squares of
+// column pt of every X chunk (chains of 8, a prior panel's run, the runs a
+// total), into dsum[pt] before the last chunk is handed over.
 template <bool XT, class Issue>
-__device__ __forceinline__ void produce(unsigned char* sm, uint64_t* full,
-                                        uint64_t* empty, int nc, Issue issue,
-                                        bool diag, float* dsum, int pt) {
-#pragma unroll 1
-    for (int c = 0; c < RSTAGES - 1; ++c) issue(c);
+__device__ __forceinline__ void produce_split(unsigned char* sm,
+                                              uint64_t* full, uint64_t* empty,
+                                              int nc, Issue issue, bool diag,
+                                              float* dsum, int pt) {
     float prun = 0.f, dtot = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < nc; ++c) {
-        cp_wait<RSTAGES - 2>();         // this thread's copies of chunk c
-        producer_sync();                // everyone's; raw stage of c - 1 free
-        issue(c + RSTAGES - 1);
-        const float* raw = reinterpret_cast<const float*>(
-            sm + (c % RSTAGES) * RSTAGE_B);
-        const int s = c % SSTAGES;
-        if (c >= SSTAGES)               // the consumers are done with c - S
-            bar_wait(&empty[s], ((c / SSTAGES) + 1) & 1);
+    produce<RSTAGES, SSTAGES, PT>(full, empty, nc, issue, [&](int c, int s) {
         float ch[2];
-        split_chunk<XT>(raw, reinterpret_cast<bf16*>(sm + SPLIT_OFF
-                                                     + s * SSTAGE_B),
+        split_chunk<XT>(reinterpret_cast<const float*>(
+                            sm + (c % RSTAGES) * RSTAGE_B),
+                        reinterpret_cast<bf16*>(sm + SPLIT_OFF
+                                                + s * SSTAGE_B),
                         pt, diag, ch);
         if (diag) {
             prun = __fadd_rn(__fadd_rn(prun, ch[0]), ch[1]);
@@ -252,183 +195,7 @@ __device__ __forceinline__ void produce(unsigned char* sm, uint64_t* full,
             }
             if (c == nc - 1) dsum[pt] = dtot;
         }
-        // the split tiles (and the diagonal's sums) to the tensor cores'
-        // proxy, then to the consumers
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        __syncwarp();
-        if ((pt & 31) == 0) bar_arrive(&full[s]);
-    }
-    cp_wait<0>();
-}
-
-// d (+)= A B^T over one 16-deep step for the warpgroup's 64 x 128 block, A
-// and B split parts given by their descriptors; SCALE_D = 0 starts from zero
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da,
-                                         uint64_t db) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n"
-        " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
-        " %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(SCALE_D));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of d across a wgmma or a
-// wait
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// the descriptor of a split part (no swizzle, K-major: LBO 128, SBO 256)
-__device__ __forceinline__ uint64_t part_desc(const void* p) {
-    return uint64_t((smem_u32(p) & 0x3FFFF) >> 4)
-        | (uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32);
-}
-
-// Where entry i of a consumer thread's 64 sums lies in the tile.  wgmma:
-// warpgroup wg = warp / 4 owns rows 64 wg .. +64, its warp w = warp % 4
-// rows 16 w .. +16, all 128 columns.  mma.sync: entry (mi * 8 + ni) * 4 + e,
-// warp (wm, wn) = (warp % 4, warp / 4) owns rows 32 wm .. +32 and columns
-// 64 wn .. +64, as 2 x 8 tiles of m16n8.
-template <bool WG>
-__device__ __forceinline__ int acc_row(int i, int warp, int lane) {
-    return WG ? (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2)
-                    + 8 * ((i >> 1) & 1)
-              : (warp & 3) * 32 + (i >> 5) * 16 + (lane >> 2)
-                    + 8 * ((i >> 1) & 1);
-}
-template <bool WG>
-__device__ __forceinline__ int acc_col(int i, int warp, int lane) {
-    return WG ? (i >> 2) * 8 + 2 * (lane & 3) + (i & 1)
-              : (warp >> 2) * 64 + ((i >> 2) & 7) * 8 + 2 * (lane & 3)
-                    + (i & 1);
-}
-
-// Sum one panel's chunk into run (hi.hi, fresh, one IEEE add an entry) and
-// chain (the five smaller products through the wgmma accumulator).
-__device__ __forceinline__ void wg_step(const unsigned char* S, int wg,
-                                        float (&run)[64], float (&hh)[64],
-                                        float (&chain)[64]) {
-    uint64_t dx[3], dy[3];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-        dx[s] = part_desc(S + s * PART_B + wg * 8 * 256);
-        dy[s] = part_desc(S + (3 + s) * PART_B);
-    }
-    fence_regs(hh);
-    fence_regs(chain);
-    wgmma_fence();
-    if (IPX_ACCUM_CHAIN_SMALL) {
-        wgmma128<0>(hh, dx[0], dy[0]);
-        wgmma_commit();
-        wgmma128<1>(chain, dx[1], dy[0]);
-        wgmma128<1>(chain, dx[2], dy[0]);
-        wgmma128<1>(chain, dx[0], dy[1]);
-        wgmma128<1>(chain, dx[1], dy[1]);
-        wgmma128<1>(chain, dx[0], dy[2]);
-        wgmma_commit();
-        wgmma_wait<1>();                // hi.hi done
-        fence_regs(hh);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) run[i] = __fadd_rn(run[i], hh[i]);
-    } else {
-        // every product alone, as the probe's variant
-        const int pairs[6][2] = {{0, 0}, {1, 0}, {2, 0}, {0, 1}, {1, 1},
-                                 {0, 2}};
-#pragma unroll
-        for (int p = 0; p < 6; ++p) {
-            if (p) wgmma_fence();
-            wgmma128<0>(hh, dx[pairs[p][0]], dy[pairs[p][1]]);
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_regs(hh);
-#pragma unroll
-            for (int i = 0; i < 64; ++i) run[i] = __fadd_rn(run[i], hh[i]);
-        }
-    }
-}
-
-// The consumer warps' loop over nc chunks, CPP a prior panel: returns in tot
-// the sum over the panels of (hi.hi run + small-product chain), the panel
-// sums added in order (parked in shared memory between panels).  wgmma: a
-// chunk's stage is handed back once its products have completed, the
-// chained ones one chunk later.  A panel's chunks are unrolled, so that no
-// branch joins while chained products are in flight: ptxas would make every
-// chunk wait for them there.
-template <bool WG>
-__device__ __forceinline__ void consume(unsigned char* sm, uint64_t* full,
-                                        uint64_t* empty, int nc, float* park,
-                                        int tid, float (&tot)[64]) {
-    const int lane = tid & 31;
-    float chain[64], hh[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) tot[i] = chain[i] = hh[i] = 0.f;
-#pragma unroll 1
-    for (int c0 = 0; c0 < nc; c0 += CPP) {
-#pragma unroll
-        for (int cc = 0; cc < CPP; ++cc) {
-            const int c = c0 + cc, s = c % SSTAGES;
-            bar_wait(&full[s], (c / SSTAGES) & 1);
-            __syncwarp();               // wgmma wants the warp converged
-            wg_step(sm + SPLIT_OFF + s * SSTAGE_B, tid >> 7, tot, hh, chain);
-            if (cc == CPP - 1) {        // the panel's products all done
-                wgmma_wait<0>();
-                fence_regs(chain);
-            }
-            __syncwarp();
-            if (lane == 0) {
-                if (IPX_ACCUM_CHAIN_SMALL && cc > 0)
-                    bar_arrive(&empty[(c - 1) % SSTAGES]);
-                if (!IPX_ACCUM_CHAIN_SMALL || cc == CPP - 1)
-                    bar_arrive(&empty[s]);
-            }
-        }
-        const bool first = c0 == 0, last = c0 + CPP >= nc;
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-            float* at = park + i * CT + tid;
-            float r = __fadd_rn(tot[i], chain[i]);
-            if (!first) r = __fadd_rn(*at, r);
-            if (last) {
-                tot[i] = r;
-            } else {
-                *at = r;
-                tot[i] = 0.f;
-            }
-            chain[i] = 0.f;
-        }
-    }
+    });
 }
 
 // One 16-deep step of the warp's 32 x 64 block from a split stage: hi.hi
@@ -470,12 +237,12 @@ __device__ __forceinline__ void multiply(const bf16* S, int lane, int wm,
     }
 }
 
-template <>
-__device__ __forceinline__ void consume<false>(unsigned char* sm,
-                                               uint64_t* full,
-                                               uint64_t* empty, int nc,
-                                               float* park, int tid,
-                                               float (&tot)[64]) {
+// The mma.sync consumers' loop: mma_common.cuh consume's sums, each warp a
+// 32 x 64 block.
+__device__ __forceinline__ void consume_mma(unsigned char* sm,
+                                            uint64_t* full, uint64_t* empty,
+                                            int nc, float* park, int tid,
+                                            float (&tot)[64]) {
     const int lane = tid & 31, warp = tid >> 5;
     Frag& run = reinterpret_cast<Frag&>(tot);
     Frag chain;
@@ -556,13 +323,17 @@ accum_panel_kernel(const float* __restrict__ Ms, Prior prior,
             }
             cp_commit();
         };
-        produce<false>(sm, full, empty, nc, issue, diag, dsum, pt);
+        produce_split<false>(sm, full, empty, nc, issue, diag, dsum, pt);
         return;
     }
 
     set_regs<true, Regs<WG>::consumer>();
     float tot[64];
-    consume<WG>(sm, full, empty, nc, park, tid, tot);
+    if constexpr (WG)
+        consume<CPP, SSTAGES, CT, IPX_ACCUM_CHAIN_SMALL != 0>(
+            sm + SPLIT_OFF, full, empty, nc, park, tid, tot);
+    else
+        consume_mma(sm, full, empty, nc, park, tid, tot);
     // the diagonal's CUDA-core sums came with the last chunk (k = 0: zeros)
 
     // ---- C = start - total, the one subtraction ------------------------------
@@ -635,13 +406,13 @@ lt_rows_kernel(const float* __restrict__ W, const float* __restrict__ C,
             }
             cp_commit();
         };
-        produce<true>(sm, full, empty, nc, issue, false, nullptr, pt);
+        produce_split<true>(sm, full, empty, nc, issue, false, nullptr, pt);
         return;
     }
 
     set_regs<true, Regs<false>::consumer>();
     float tot[64];
-    consume<false>(sm, full, empty, nc, nullptr, tid, tot);
+    consume_mma(sm, full, empty, nc, nullptr, tid, tot);
     const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {

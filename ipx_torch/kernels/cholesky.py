@@ -4,7 +4,8 @@ triangular solves (counterpart of ``ipx/kernels/cholesky.py``).
 ``assemble_sym_batched`` computes ``M[b] = (A[b] * d2[b]) @ A[b]^T`` over the
 lower triangle of 128 x 128 tiles only, symmetrises the diagonal tiles and
 mirrors the rest, so M is exactly symmetric (``csrc/assemble_sym.cu``: the
-tensor cores for a bf16 A, as the fused panel stage).
+tensor cores, for a bf16 A as the fused panel stage, for an f32 A
+warp-specialised as the accumulation of ``factor_lt_panels``).
 
 The factor of ``chol_backend="pallas_left"`` is left-looking over 128-row
 panels and comes out as ``(panels, W)``: ``panels[k]`` is ``(B, NB, m - k NB)``,
@@ -108,14 +109,20 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# argument types of ``csrc/assemble_sym.cu``'s C entry point
+ASSEMBLE_ENTRY_ARGS = {"ipx_assemble_sym": [_P, _I, _P, _P, _I, _I, _I, _P]}
+
+
 def assemble_sym_batched(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """A (B, m, n) f32 or bf16, d2 (B, n) f32 -> M (B, m, m) f32, exactly
     symmetric.  Any m, n: ragged tile edges are masked in the kernel.  Always
     f32-faithful, summed in two levels (64-column chunks, then the chunk
-    sums): a bf16 A on the tensor cores with the exact 3-way split of
-    f32(A * d2), every MMA summed alone, the diagonal on the CUDA cores; an
-    f32 A in f32 FMAs.  The 2-term "high" assembly mode of ``ipx`` has no
-    counterpart."""
+    sums), on the tensor cores with the diagonal of the diagonal tiles
+    summed on the CUDA cores: a bf16 A against the exact 3-way split of
+    f32(A * d2), every MMA summed alone; an f32 A with both f32(A * d2) and
+    A split exactly, six cross products a step, hi.hi summed alone and the
+    five smaller ones chained through one accumulator per chunk.  The
+    2-term "high" assembly mode of ``ipx`` has no counterpart."""
     if A.ndim != 3:
         raise ValueError(f"A must be (B, m, n), got {tuple(A.shape)}")
     if A.dtype not in (torch.float32, torch.bfloat16):
@@ -135,7 +142,7 @@ def assemble_sym_batched(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"batch {B} exceeds the grid's 65535 instances")
     M = torch.empty(B, m, m, dtype=torch.float32, device=A.device)
     fn = _entry("assemble_sym", "ipx_assemble_sym",
-                [_P, _I, _P, _P, _I, _I, _I, _P])
+                ASSEMBLE_ENTRY_ARGS["ipx_assemble_sym"])
     with torch.cuda.device(A.device):
         rc = fn(A.data_ptr(), int(A.dtype == torch.bfloat16), d2.data_ptr(),
                 M.data_ptr(), B, m, n, _stream(A))

@@ -86,9 +86,10 @@ def assemble(A: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 
     A bf16-stored A, and an f32 A on the card, go through the hand-written
     tile kernels (``kernels.cholesky.assemble_sym_batched``: the tensor
-    cores for bf16, float32 FMAs for f32, both summed in two levels, as the
-    summation rule asks; a library matmul sums each entry in one float32
-    chain).  Any other A takes :func:`_assemble_blocks`.
+    cores on exact bf16 splits, of the row operand for bf16 and of both
+    operands for f32, summed in two levels as the summation rule asks, the
+    diagonal on the CUDA cores; a library matmul sums each entry in one
+    float32 chain).  Any other A takes :func:`_assemble_blocks`.
     """
     if A.dtype == torch.bfloat16 or (A.is_cuda and A.dtype == torch.float32):
         return pk.assemble_sym_batched(A.contiguous(),

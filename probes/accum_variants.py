@@ -4,8 +4,10 @@ copies of the source, timed and held against float64 on one card.
 
     python3 probes/accum_variants.py [--lanes] [VARIANT ...]
 
-Variants (a copy of the source under ``build/accum_variants/``, built with
-the package's nvcc flags and the ones named):
+Variants (a copy of the source and of ``csrc/mma_common.cuh``, whose
+pipeline it shares with row 4's float32 kernel, under
+``build/accum_variants/``, built with the package's nvcc flags and the ones
+named):
 
   kept            the source as it is: the accumulation on wgmma, the five
                   smaller cross products chained through one accumulator a
@@ -66,7 +68,11 @@ from ipx_torch.problem.generate import random_feasible_batch_device  # noqa: E40
 
 NB = pk.NB
 B, M = 256, 1024
-SRC = (_build.CSRC / "accum_panel.cu").read_text()
+# the source and the header it shares, one text for the edits below (a
+# variant's copy is split again at SEP)
+SEP = "\n// ==== mma_common.cuh ====\n"
+SRC = ((_build.CSRC / "accum_panel.cu").read_text() + SEP
+       + (_build.CSRC / "mma_common.cuh").read_text())
 WGMMA_CALLS = ("wgmma128<0>(hh, dx[0], dy[0]);",
                "wgmma128<1>(chain, dx[1], dy[0]);",
                "wgmma128<1>(chain, dx[2], dy[0]);",
@@ -169,10 +175,14 @@ def _variant(name: str):
 def _start_build(name: str, out: str):
     src, flags, _ = _variant(name)
     tag = re.sub(r"[^A-Za-z0-9_]", "_", name)
-    cu = os.path.join(out, f"accum_{tag}.cu")
-    lib = os.path.join(out, f"accum_{tag}.so")
-    with open(cu, "w") as f:
-        f.write(src)
+    d = os.path.join(out, tag)
+    os.makedirs(d, exist_ok=True)
+    cu = os.path.join(d, "accum_panel.cu")
+    lib = os.path.join(d, "accum_panel.so")
+    for path, text in zip((cu, os.path.join(d, "mma_common.cuh")),
+                          src.split(SEP)):
+        with open(path, "w") as f:
+            f.write(text)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC),
            "-Xptxas", "-v", "-o", lib, cu]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -10,8 +10,11 @@ each of:
 
 - ``assembly``: ``assemble_sym_batched`` on three batches of 8 (m=1024,
   n=2048, bf16 A, d2 spread over many decades as in mid-solve) with the bf16
-  A itself (the tensor cores), the same values as float32 (the CUDA cores)
-  and the plain version (one float32 matmul): the largest and the RMS error
+  A itself (``bf16_a``), the same values as float32 (``f32_a_bf16_values``:
+  the float32 kernel, whose column operand then splits into hi alone) and
+  the plain version (``plain``, one float32 matmul); and with a float32 A of
+  full mantissas drawn after them (``f32_a``: the float32 kernel of the
+  checkout measured; ``f32_a_plain``): the largest and the RMS error
   relative to the largest entry of M, the mean of all errors so scaled, and
   the mean and RMS of the relative error on the diagonal;
 - ``fused_start_tiles``: the first tile of every panel's C_k from
@@ -81,13 +84,21 @@ def _diag_stats(E, R, off_scale) -> dict:
             "offdiag_rms_rel": ((off / off_scale) ** 2).mean().sqrt()}
 
 
-def assembly(stats, A, d2) -> None:
+def assembly(stats, A, d2, A32) -> None:
+    _assembly(stats, A, d2, (
+        ("bf16_a", pk.assemble_sym_batched(A, d2)),
+        ("f32_a_bf16_values", pk.assemble_sym_batched(A.float(), d2)),
+        ("plain", pk.assemble_sym_batched_plain(A, d2))))
+    _assembly(stats, A32, d2, (
+        ("f32_a", pk.assemble_sym_batched(A32, d2)),
+        ("f32_a_plain", pk.assemble_sym_batched_plain(A32, d2))))
+
+
+def _assembly(stats, A, d2, results) -> None:
     A64 = A.double()
     R = torch.matmul(A64 * d2.double().unsqueeze(1), A64.mT)
     scale = R.abs().amax(dim=(1, 2), keepdim=True)
-    for name, Mk in (("tensor_cores", pk.assemble_sym_batched(A, d2)),
-                     ("cuda_cores", pk.assemble_sym_batched(A.float(), d2)),
-                     ("plain", pk.assemble_sym_batched_plain(A, d2))):
+    for name, Mk in results:
         E = Mk.double() - R
         dr = torch.diagonal(E / R, dim1=1, dim2=2)
         _acc(stats, "assembly/" + name, {
@@ -148,7 +159,9 @@ def main() -> int:
         d2 = torch.exp(3.0 * torch.randn(B, N, generator=g, device="cuda"))
         reg = torch.logspace(-8, -4, B, device="cuda")
         j = torch.rsqrt(fk.a_matvec(A, d2, square=True))
-        assembly(stats, A, d2)
+        A32 = torch.randn(B, M, N, generator=g, device="cuda") / N ** 0.5
+        assembly(stats, A, d2, A32)
+        del A32
         fused_start_tiles(stats, A, d2, j, reg)
         lt_start_tiles(stats, A, d2, j, reg)
         right_update(stats, A, d2, j, reg)

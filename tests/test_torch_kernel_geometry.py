@@ -85,11 +85,11 @@ def test_stripe_partials(n, W, partials):
 
 def _c_expr(expr: str) -> str:
     """A C integer expression of the sources as Python: comments dropped,
-    unsigned suffixes dropped, division truncating, && as and, lines
-    joined."""
+    unsigned suffixes dropped, division truncating, && as and, || as or,
+    lines joined."""
     expr = re.sub(r"//[^\n]*", "", expr)
     expr = re.sub(r"\b(\d+)u\b", r"\1", expr)
-    expr = expr.replace("/", "//").replace("&&", " and ")
+    expr = expr.replace("/", "//").replace("&&", " and ").replace("||", " or ")
     return "(" + expr + ")"
 
 
@@ -139,22 +139,25 @@ def test_fused_panel_smem_fits_one_block():
 
 
 def test_assembly_smem_fits_one_block():
-    """The tensor-core assembly's ring, split tiles and staged output tile,
-    as the source computes them, within the 227 KB one block may ask for;
-    its static_assert (the finished tile fits the ring's region) holds, the
-    size in its comment is right, and the launch asks for exactly that."""
-    c = _constexprs("panel_common.cuh", "assemble_sym.cu")
+    """The bf16 assembly's ring, split tiles and staged output tile, as the
+    source computes them, within the 227 KB one block may ask for; its
+    static_assert (the finished tile fits the ring's region) holds, the size
+    in its comment is right, and the launch asks for exactly that.  The
+    float32 A launches the warp-specialised kernel with its own size."""
+    c = _constexprs("panel_common.cuh", "mma_common.cuh", "assemble_sym.cu")
     text = (CSRC / "assemble_sym.cu").read_text()
     assert c["ASM_SMEM"] <= 227 * 1024
     assert f"// {c['ASM_SMEM']}" in text
     assert c["OUT_B"] == c["TILE"] * (c["TILE"] + 1) * 4
-    asserts = _static_asserts("assemble_sym.cu")
+    asserts = [a for a in _static_asserts("assemble_sym.cu")
+               if "RSTAGES * RSTAGE_B" in a and "WRSTAGES" not in a]
     assert len(asserts) == 1
     for cond in asserts:
         assert eval(cond, {}, c), cond  # noqa: S307 - own source
     assert "int(ASM_SMEM)" in text and "FT, ASM_SMEM," in text
-    # the float32 path keeps the CUDA-core tile product and its parked total
-    assert "assemble_sym_f32_kernel<<<grid, THREADS, TOT_BYTES," in text
+    # the float32 A: the tensor-core kernel, split operands on both sides
+    assert ("assemble_sym_f32_tc_kernel<<<grid, WAT, F32_SMEM, stream>>>("
+            in text)
 
 
 def test_diag_factor_inv_smem_lets_two_blocks_share_an_sm():
@@ -218,6 +221,75 @@ def test_right_entry_args_match_the_source():
         assert args == want, (name, params)
 
 
+def test_assembly_f32_smem_and_registers_fit_one_block():
+    """Row 4's float32 kernel (warp-specialised, as rows 7 and 10, with two
+    producer warpgroups): the split ring first (core matrices from a 1
+    KB-aligned offset), the raw ring of both operands' padded rows and d2,
+    the parked chunk sums, the diagonal's CUDA-core sums and the mbarriers,
+    as the source computes them and as its comment says, within the 227 KB
+    one block may ask for; the finished tile staged over the raw ring and
+    the park; one block of 512 threads an SM, whose 128 registers a thread
+    the setmaxnreg handover only moves; every static_assert holds; the
+    launch asks for exactly that size."""
+    c = _constexprs("panel_common.cuh", "mma_common.cuh", "assemble_sym.cu")
+    text = (CSRC / "assemble_sym.cu").read_text()
+    assert (c["WCT"], c["WPG"], c["WPT"], c["WAT"], c["WCK"]) == \
+        (256, 2, 256, 512, 16)
+    assert (c["WRSTAGES"], c["WSSTAGES"], c["WSTEPS"], c["WRLD"]) == \
+        (4, 3, 4, 20)
+    assert c["SSTAGE_B"] == 6 * 128 * 16 * 2
+    assert c["WRAW_OFF"] == 3 * 6 * 4096 and c["WRAW_OFF"] % 1024 == 0
+    assert c["F32_SMEM"] == (3 * 6 * 4096 + 4 * (2 * 128 * 20 * 4 + 16 * 4)
+                             + 64 * 256 * 4 + 128 * 4 + 2 * 3 * 8) == 222000
+    assert c["F32_SMEM"] <= 227 * 1024
+    assert f"// {c['F32_SMEM']}" in text
+    assert c["OUT_B"] <= c["WRSTAGES"] * c["WRSTAGE_B"] + c["WPARK_B"]
+    assert c["WPARK_OFF"] == c["WRAW_OFF"] + c["WRSTAGES"] * c["WRSTAGE_B"]
+    # padded raw rows: the 16-byte reads of 8 consecutive rows hit 8
+    # distinct groups of 4 banks
+    assert len({(r * c["WRLD"] // 4) % 8 for r in range(8)}) == 8
+    assert c["W_LAUNCH_REGS"] == 65536 // 512 // 8 * 8 == 128
+    assert (c["W_CONSUMER_REGS"], c["W_PRODUCER_REGS"]) == (200, 56)
+    assert 256 * 200 + 256 * 56 == 512 * c["W_LAUNCH_REGS"]
+    asserts = [a for a in _static_asserts("assemble_sym.cu")
+               if "W" in a or "F32_SMEM" in a]
+    assert len(asserts) == 5
+    for cond in asserts:
+        assert eval(cond, {}, c), cond  # noqa: S307 - own source
+    assert "__launch_bounds__(WAT, 1)" in text
+    assert "int(F32_SMEM)" in text and "WAT, F32_SMEM," in text
+    assert "set_regs<false, W_PRODUCER_REGS>();" in text
+    assert "set_regs<true, W_CONSUMER_REGS>();" in text
+    # the shared pipeline: six cross products, hi.hi alone, 64-column chunks
+    assert "consume<WSTEPS, WSSTAGES, WCT, true>(" in text
+    assert "produce<WRSTAGES, WSSTAGES, WPT>(" in text
+    # bf16 parts on the tensor cores, no TF32 in the kernel or the pipeline
+    header = (CSRC / "mma_common.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in header
+    for src in (text, header):
+        assert "tf32" not in re.sub(r"//[^\n]*", "", src).lower()
+
+
+def test_assemble_entry_args_match_the_source():
+    """The argument types ``assemble_sym_batched`` gives the assembly's C
+    entry point, against its declaration: a pointer for each pointer, a C
+    int for each int."""
+    import ctypes
+
+    from ipx_torch.kernels import cholesky as tpk
+
+    text = (CSRC / "assemble_sym.cu").read_text()
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
+    assert set(tpk.ASSEMBLE_ENTRY_ARGS) == set(
+        re.findall(r'extern "C" int (\w+)\(', text))
+    for name, args in tpk.ASSEMBLE_ENTRY_ARGS.items():
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert found, name
+        params = [p.strip() for p in found.group(1).split(",")]
+        want = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
+        assert args == want, (name, params)
+
+
 def test_accum_panel_smem_and_registers_fit_one_block():
     """Rows 7 and 10's warp-specialised kernels: the raw ring, the split
     ring, the parked totals, two tiles of diagonal sums and the mbarriers,
@@ -226,8 +298,9 @@ def test_accum_panel_smem_and_registers_fit_one_block():
     registers a thread the setmaxnreg handover only moves (a consumer
     asking for more than the producers gave back would wait for ever);
     every static_assert holds; both launches ask for exactly that size."""
-    c = _constexprs("panel_common.cuh", "accum_panel.cu")
+    c = _constexprs("panel_common.cuh", "mma_common.cuh", "accum_panel.cu")
     text = (CSRC / "accum_panel.cu").read_text()
+    header = (CSRC / "mma_common.cuh").read_text()
     assert (c["CT"], c["PT"], c["AT"], c["CK"]) == (256, 128, 384, 16)
     assert (c["RSTAGES"], c["SSTAGES"]) == (4, 3)
     assert c["PART_B"] == 128 * 16 * 2
@@ -247,7 +320,7 @@ def test_accum_panel_smem_and_registers_fit_one_block():
         assert (256 * regs["consumer"][wg] + 128 * regs["producer"][wg]
                 == 384 * c["LAUNCH_REGS"])
     asserts = _static_asserts("accum_panel.cu")
-    assert len(asserts) == 4
+    assert len(asserts) == 5
     for cond in asserts:
         for kind, wg in (("true", 0), ("false", 1)):
             for who in ("consumer", "producer"):
@@ -256,11 +329,14 @@ def test_accum_panel_smem_and_registers_fit_one_block():
         assert eval(cond, {}, c), cond  # noqa: S307 - own source
     assert text.count("__launch_bounds__(AT, 1)") == 2
     assert "int(ACCUM_SMEM)" in text and text.count("AT, ACCUM_SMEM,") == 2
-    assert "setmaxnreg.inc" in text and "setmaxnreg.dec" in text
-    # the split parts: 8 x 8 core matrices, row n, contraction half kh
-    assert ("return (n >> 3) * 128 + kh * 64 + (n & 7) * 8;" in text)
+    assert "setmaxnreg.inc" in header and "setmaxnreg.dec" in header
+    assert text.count("set_regs<true,") == 2 \
+        and text.count("set_regs<false,") == 2
+    # the split parts (mma_common.cuh): 8 x 8 core matrices, row n,
+    # contraction half kh
+    assert ("return (n >> 3) * 128 + kh * 64 + (n & 7) * 8;" in header)
     assert ("(uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32)"
-            in text)
+            in header)
 
 
 def test_accum_entry_args_match_the_source():
@@ -293,7 +369,10 @@ def test_tensor_core_sources_share_one_mma_header():
     its helpers again."""
     helpers = ("void cp16(", "void ldm_x4(", "void mma(", "void mma_add(",
                "void split2(", "void split8(", "void ring(", "typedef float Frag",
-               "void zero_frag(", "void add_frag(")
+               "void zero_frag(", "void add_frag(", "int core_off(",
+               "uint64_t part_desc(", "void bar_init(", "void bar_arrive(",
+               "void bar_wait(", "void set_regs(", "void wgmma128(",
+               "void produce(", "void wg_step(", "void consume(")
     header = (CSRC / "mma_common.cuh").read_text()
     for h in helpers:
         assert h in header, h
