@@ -71,7 +71,7 @@ if not torch.cuda.is_available():
 
 import ipx_torch
 import ipx_torch.api
-from ipx_torch import native, obs
+from ipx_torch import native, numerics, obs
 from ipx_torch.devinfo import nvidia_smi_line, time_ms
 from ipx_torch.ipm import batched
 from ipx_torch.kernels import _build
@@ -207,6 +207,9 @@ EARLY_ITERS = 6
 EARLY_TOL = 1e-3
 
 N_RAGGED = 2045     # an n whose A rows are not 16-byte aligned
+M_SPANS, N_SPANS = 2100, 4500   # rows 2 and 3 with two spans of w, the
+                                # second ragged, and two or three tiles
+M_ROWS_F32, N_ROWS_F32 = 8192, 16384    # rows 2 and 3 at large_f32's shape
 B_XLA = 64          # batch of the library-Cholesky path and of the backends
                     # that share the pair-solve kernels with the wide paths,
                     # of the Schur-form route and of refactor_period=2
@@ -251,8 +254,8 @@ ROW_CHILD_TIMEOUT = 300     # seconds for the two ranks of the mesh run
 # kernel name -> (source, TPU kernel it replaces)
 KERNELS = {
     "ata_apply": ("ipx_torch/csrc/fused_matvec.cu", "ipx/kernels/fused.py:80"),
-    "a_matvec": ("ipx_torch/csrc/fused_matvec.cu", "ipx/kernels/fused.py:142"),
-    "at_matvec": ("ipx_torch/csrc/fused_matvec.cu", "ipx/kernels/fused.py:161"),
+    "a_matvec": ("ipx_torch/csrc/row_matvec.cu", "ipx/kernels/fused.py:142"),
+    "at_matvec": ("ipx_torch/csrc/row_matvec.cu", "ipx/kernels/fused.py:161"),
     "assemble_sym_batched": ("ipx_torch/csrc/assemble_sym.cu",
                              "ipx/kernels/cholesky.py:1399"),
     "factor_fused_panels": ("ipx_torch/csrc/fused_panel.cu",
@@ -285,9 +288,12 @@ _F32 = _ASSEMBLED + ("factor_lt_panels", "diag_factor_inv",
                      "chol_solve_batched_panels")
 # the Schur rung's reduced factor and its solves on pallas_left: row 5 (with
 # the squared stream of row 2 for its Jacobi scale), 5b, the pair-solve and
-# ata_apply as the inner CG operator (its other products are library ones)
-_SCHUR = ("ata_apply", "a_matvec", "factor_fused_panels", "diag_factor_inv",
-          "chol_solve_batched_panels")
+# ata_apply as the inner CG operator; its other products are rows 2 and 3
+_SCHUR = ("ata_apply", "a_matvec", "at_matvec", "factor_fused_panels",
+          "diag_factor_inv", "chol_solve_batched_panels")
+# the large LP's routes: rows 4 and 10 (with the diagonal kernel), and rows 2
+# and 3 for every product with A and the Jacobi diagonal
+_LARGE_PATH = _LARGE + ("a_matvec", "at_matvec")
 # which kernels each driven path must launch
 PATH_KERNELS = {
     "pallas_left": _LEFT,
@@ -305,8 +311,8 @@ PATH_KERNELS = {
     "assembled": _RIGHT,
     "padded_lt": _RIGHT,
     "augmented_schur": _SCHUR,
-    # the LU route: an LU of K and library products, no kernel
-    "augmented": (),
+    # the LU route: an LU of K, its products rows 2 and 3
+    "augmented": ("a_matvec", "at_matvec"),
     # one LP alone: stage 1 on pallas_left, then the ladder's rungs
     "ladder": _LEFT,
     "refactor2": _F32,
@@ -325,15 +331,16 @@ PATH_KERNELS = {
     "resume": ("assemble_sym_batched",),
     # the large single LP at p = 1: the assembly kernel on the whole A, the
     # full-matrix factor (row 10 with the diagonal kernel), the solves
-    # W-substitutions with library products (past the pair-solve's m)
-    "large": _LARGE,
-    "large_f32": _LARGE,
-    "sharded_schur": _LARGE,
-    "large_group": _LARGE,
+    # W-substitutions with library products (past the pair-solve's m), the
+    # products with A and the Jacobi diagonal rows 2 and 3
+    "large": _LARGE_PATH,
+    "large_f32": _LARGE_PATH,
+    "sharded_schur": _LARGE_PATH,
+    "large_group": _LARGE_PATH,
     # config 5 on the sharded route: at p = 1 the whole factor of each
     # lane, on the (1, 2) mesh (rank 0's counts) the diagonal blocks
-    "row_sharded": _LARGE,
-    "row_sharded_mesh": _LARGE,
+    "row_sharded": _LARGE_PATH,
+    "row_sharded_mesh": _LARGE_PATH,
 }
 # the library calls a path may make: the factor and triangular solve of the
 # library route, which the kernel paths must not make, and the LU route's
@@ -474,15 +481,16 @@ def phase_build() -> None:
          flags=list(_build.NVCC_FLAGS))
 
 
-def _inputs(B: int, a_dtype: torch.dtype, seed: int):
+def _inputs(B: int, a_dtype: torch.dtype, seed: int, m: int = M_ROWS,
+            n: int = N_COLS):
     g = torch.Generator(device=DEV).manual_seed(seed)
     kw = dict(generator=g, device=DEV, dtype=torch.float32)
-    A = (torch.randn(B, M_ROWS, N_COLS, **kw) / N_COLS ** 0.5).to(a_dtype)
-    v = torch.randn(B, M_ROWS, **kw)
-    w = torch.randn(B, N_COLS, **kw)
-    beta = torch.randn(B, N_COLS, **kw)
+    A = (torch.randn(B, m, n, **kw) / n ** 0.5).to(a_dtype)
+    v = torch.randn(B, m, **kw)
+    w = torch.randn(B, n, **kw)
+    beta = torch.randn(B, n, **kw)
     # a D^2 = x/s profile with the spread of a mid-solve iterate
-    alpha = torch.exp(3.0 * torch.randn(B, N_COLS, **kw))
+    alpha = torch.exp(3.0 * torch.randn(B, n, **kw))
     return A, v, w, beta, alpha
 
 
@@ -499,7 +507,9 @@ def _f64_refs(A, v, w, beta, alpha) -> dict:
         "a_matvec": (av(w.double()),),
         "a_matvec/squared": (torch.matmul(
             A64 * A64, alpha.double().unsqueeze(-1)).squeeze(-1),),
+        "a_matvec/f64": (av(w.double()),),
         "at_matvec": (t,),
+        "at_matvec/f64": (t,),
         "assemble_sym_batched": (
             torch.matmul(A64 * alpha.double().unsqueeze(1), A64.mT),),
     }
@@ -510,8 +520,12 @@ def _calls(A, v, w, beta, alpha):
     with a slash is another calling mode of the kernel before the slash, as
     the main path uses it: the independent pair (A w, A^T v) of the residuals
     and the Gondzio step, the normal operator A (d2 (A^T v)) of the CG, and a
-    refinement right-hand side without beta, and the squared stream that
-    gives the Jacobi diagonal (A o A) d2.  Modes are compared, not timed."""
+    refinement right-hand side without beta, the squared stream that gives
+    the Jacobi diagonal (A o A) d2, and rows 2 and 3 with the float64 sums
+    unrounded (``out_dtype``, the float64 products of the sharded routes;
+    the plain version a float64 product).  Modes are compared, not
+    timed."""
+    f64 = torch.float64
     tup = lambda x: x if isinstance(x, tuple) else (x,)
     return {
         "ata_apply": (lambda: fk.ata_apply(A, v, alpha, w, beta=beta),
@@ -527,8 +541,14 @@ def _calls(A, v, w, beta, alpha):
         "a_matvec/squared": (
             lambda: tup(fk.a_matvec(A, alpha, square=True)),
             lambda: tup(fk.a_matvec_plain(A, alpha, square=True))),
+        "a_matvec/f64": (
+            lambda: tup(fk.a_matvec(A, w, out_dtype=f64)),
+            lambda: tup(fk.a_matvec_plain(A, w, out_dtype=f64))),
         "at_matvec": (lambda: tup(fk.at_matvec(A, v)),
                       lambda: tup(fk.at_matvec_plain(A, v))),
+        "at_matvec/f64": (
+            lambda: tup(fk.at_matvec(A, v, out_dtype=f64)),
+            lambda: tup(fk.at_matvec_plain(A, v, out_dtype=f64))),
         "assemble_sym_batched": (
             lambda: tup(pk.assemble_sym_batched(A, alpha)),
             lambda: tup(pk.assemble_sym_batched_plain(A, alpha))),
@@ -587,50 +607,116 @@ def _bounds(B: int, itemsize: int) -> dict:
     return {name: _bound(*w) for name, w in _matvec_work(B, itemsize).items()}
 
 
-def _refuses_oversize_rows() -> str | None:
-    """An A on the card with more rows than a block's shared memory holds
-    stays on the fused route and is refused by every wrapper; nothing hands
-    it to library matmuls.  Returns what went wrong, or None."""
+def _oversize_rows() -> str | None:
+    """An A on the card with more rows than one block's shared memory holds
+    as a column stripe stays on the fused route: ``ata_apply`` (row 1,
+    whose stripe caps m) refuses it before any launch, and rows 2 and 3
+    (row streams, nothing of A in shared memory) take it and agree with a
+    float64 product.  Nothing hands it to library matmuls.  Returns what
+    went wrong, or None."""
     m, n = 1 << 15, 64
-    A = torch.zeros(1, m, n, dtype=torch.bfloat16, device=DEV)
-    v = torch.zeros(1, m, device=DEV)
-    w = torch.ones(1, n, device=DEV)
+    A, v, w, _, _ = _inputs(1, torch.bfloat16, seed=10, m=m, n=n)
     if not normal_eq.use_fused_matvec(slice_options(), A):
         return f"m={m} leaves the fused route"
-    attempts = {
-        "ata_apply": lambda: fk.ata_apply(A, v, w, None),
-        "a_matvec": lambda: fk.a_matvec(A, w),
-        "at_matvec": lambda: fk.at_matvec(A, v),
-    }
     before = dict(fk.LAUNCHES)
-    for name, call in attempts.items():
-        try:
-            call()
-        except ValueError:
-            continue
-        return f"{name} took m={m} on the card instead of refusing it"
-    return None if dict(fk.LAUNCHES) == before else "a refused call counted"
+    try:
+        fk.ata_apply(A, v, w, None)
+    except ValueError:
+        pass
+    else:
+        return f"ata_apply took m={m} on the card instead of refusing it"
+    if dict(fk.LAUNCHES) != before:
+        return "a refused call counted"
+    A64 = A.double()
+    for name, got, ref in (
+            ("a_matvec", fk.a_matvec(A, w),
+             (A64 @ w.double().unsqueeze(-1)).squeeze(-1)),
+            ("at_matvec", fk.at_matvec(A, v),
+             (v.double().unsqueeze(1) @ A64).squeeze(1))):
+        err = _mx(got.double() - ref) / _mx(ref)
+        if not err <= TOL_F64:
+            return f"{name} at m={m}: {err:.3e} off float64 (limit {TOL_F64})"
+    return None
+
+
+def _t_was_used(label: str, case: str, A, v, w, beta, alpha, got) -> None:
+    """``ata_apply``'s y is A applied to the u formed from the t it returned:
+    u = alpha (t + beta) + w in float32, each operation rounded as the
+    kernel rounds it (t + beta first, no contraction), and ``ata_apply``
+    with v = 0, alpha = None and w = u forms the same u and streams the
+    same second phase, so it gives y's bits."""
+    al, ww, be = {"ata_apply": (alpha, w, beta),
+                  "ata_apply/pair": (None, w, None),
+                  "ata_apply/operator": (alpha, None, None),
+                  "ata_apply/no_beta": (alpha, w, None)}[case]
+    y, t = got
+    zero = torch.zeros_like(t)
+    u = ((zero if al is None else al) * (t + (zero if be is None else be))
+         + (zero if ww is None else ww))
+    if not torch.equal(y, fk.ata_apply(A, torch.zeros_like(v), None, u)[0]):
+        fail("kernels", f"{label}: y is not A applied to the returned t")
+
+
+def _misaligned(A: torch.Tensor) -> torch.Tensor:
+    """A copy of A whose data starts one element past a 16-byte boundary:
+    rows 2 and 3 read it element by element."""
+    buf = torch.empty(A.numel() + 1, dtype=A.dtype, device=A.device)
+    out = buf[1:].view(A.shape)
+    out.copy_(A)
+    return out
+
+
+def _row_bits(label: str, case: str, A, v, w, alpha, got) -> None:
+    """Rows 2 and 3 give the same bits from a second launch, for a lane at
+    B = 1 and 3 as in the batch, and from a copy of A read element by
+    element (data off a 16-byte boundary): the tiling depends on (m, n,
+    the stored type) alone and no sum is taken in a racing order."""
+    f64 = torch.float64
+    call, x = {
+        "a_matvec": (lambda A_, x_: fk.a_matvec(A_, x_), w),
+        "a_matvec/squared": (
+            lambda A_, x_: fk.a_matvec(A_, x_, square=True), alpha),
+        "a_matvec/f64": (
+            lambda A_, x_: fk.a_matvec(A_, x_, out_dtype=f64), w),
+        "at_matvec": (lambda A_, x_: fk.at_matvec(A_, x_), v),
+        "at_matvec/f64": (
+            lambda A_, x_: fk.at_matvec(A_, x_, out_dtype=f64), v),
+    }[case]
+    if not torch.equal(got[0], call(A, x)):
+        fail("kernels", f"{label}: two launches differ")
+    if not torch.equal(got[0], call(_misaligned(A), x)):
+        fail("kernels", f"{label}: the element-by-element path differs")
+    _lanes_bitwise("kernels", label, call, (A, x), got)
 
 
 def _check_odd_shapes(rows: dict) -> None:
     """The matvecs and the assembly off the main path's shape, held against
     the plain version and f64 like the other modes, bf16 and f32: at n =
-    N_RAGGED (``ata_apply``, ``assemble_sym_batched``) rows that are not
-    16-byte aligned are staged element by element and the last stripe or
-    chunk is ragged; at m = M_PADDED (all four) the matvecs' copy chunks are
-    ceil(m / 8) rows, the last one short, the rows' swizzle runs over a count
-    that is not a multiple of 8, and the assembly's last tile row is
-    zero-filled and its stores masked.  t of ``ata_apply`` is again the bits
-    of ``at_matvec``; M is exactly symmetric, the same bits from a second
-    launch and, for a lane, at B = 1 and 3 as in the batch."""
-    cuts = ((f"n{N_RAGGED}", M_ROWS, N_RAGGED,
-             ("ata_apply", "assemble_sym_batched")),
-            (f"m{M_PADDED}", M_PADDED, N_COLS, _ASSEMBLED))
+    N_RAGGED (all four) rows that are not 16-byte aligned are staged (row
+    1, the assembly) or read (rows 2 and 3) element by element and the last
+    stripe, chunk or warp step is ragged; at m = M_PADDED (all four) the
+    stripe's copy chunks are ceil(m / 8) rows, the last one short, the rows'
+    swizzle runs over a count that is not a multiple of 8, rows 2 and 3's
+    last row block and tile are short, and the assembly's last tile row is
+    zero-filled and its stores masked; at M_SPANS x N_SPANS (rows 2 and 3)
+    w takes two spans, the second ragged, and t two (bf16) or three (f32)
+    tiles.  ``ata_apply``'s y is A applied to the t it returned; rows 2 and
+    3 give the same bits twice, across B and element by element; M is
+    exactly symmetric, the same bits from a second launch and, for a lane,
+    at B = 1 and 3 as in the batch."""
+    cuts = ((f"n{N_RAGGED}", M_ROWS, N_RAGGED, _ASSEMBLED),
+            (f"m{M_PADDED}", M_PADDED, N_COLS, _ASSEMBLED),
+            (f"m{M_SPANS}n{N_SPANS}", M_SPANS, N_SPANS,
+             ("a_matvec", "at_matvec")))
     for a_dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for cut, m, n, names in cuts:
-            A, v, w, beta, alpha = _inputs(B_CHECK, a_dtype, seed=8)
-            A, v = A[:, :m, :n].contiguous(), v[:, :m].contiguous()
-            w, beta, alpha = (x[:, :n].contiguous() for x in (w, beta, alpha))
+            if n > N_COLS:
+                A, v, w, beta, alpha = _inputs(B_CHECK, a_dtype, 8, m, n)
+            else:
+                A, v, w, beta, alpha = _inputs(B_CHECK, a_dtype, seed=8)
+                A, v = A[:, :m, :n].contiguous(), v[:, :m].contiguous()
+                w, beta, alpha = (x[:, :n].contiguous()
+                                  for x in (w, beta, alpha))
             refs = _f64_refs(A, v, w, beta, alpha)
             calls = _calls(A, v, w, beta, alpha)
             for name in names:
@@ -651,9 +737,10 @@ def _check_odd_shapes(rows: dict) -> None:
                     fail("kernels", f"{label}: rel err vs plain "
                          f"{worst_plain:.3e}, vs f64 {worst_f64:.3e} "
                          f"(tolerances {TOL_PLAIN}, {TOL_F64})")
-                if name == "ata_apply" and \
-                        not torch.equal(got[1], fk.at_matvec(A, v)):
-                    fail("kernels", f"{label}: t differs from at_matvec")
+                if name == "ata_apply":
+                    _t_was_used(label, name, A, v, w, beta, alpha, got)
+                if name in ("a_matvec", "at_matvec"):
+                    _row_bits(label, name, A, v, w, alpha, got)
                 if name == "assemble_sym_batched":
                     _check_assembly(label, got[0], A, alpha)
             del A, refs, calls
@@ -668,6 +755,93 @@ def _check_assembly(label, M, A, d2) -> None:
     if not torch.equal(M, pk.assemble_sym_batched(A, d2)):
         fail("kernels", f"{label}: two launches differ")
     _lanes_bitwise("kernels", label, pk.assemble_sym_batched, (A, d2), (M,))
+
+
+def _rows_b1(A: torch.Tensor, rows: dict, tag: str, phase: str,
+             block: int = 2048) -> dict:
+    """Rows 2 and 3 at B = 1 on a large LP's A (1, m, n): y = A w, (A o A)
+    d2 and t = A^T v, rounded and in float64, held against float64 and the
+    plain version, both taken a block of rows at a time, and the same bits
+    from a second launch; then timed beside their bound, the plain version
+    (by blocks), one library product on a float32 copy of A made outside
+    the timed region, and the route the sharded and augmented products took
+    before this kernel (``numerics.mv`` / ``mv64``: a copy of A a block of
+    rows at a time, then a library product).  Into ``rows[name][tag]``."""
+    _, m, n = A.shape
+    g = torch.Generator(device=DEV).manual_seed(12)
+    w = torch.randn(1, n, generator=g, device=DEV)
+    v = torch.randn(1, m, generator=g, device=DEV)
+    d2 = torch.exp(3.0 * torch.randn(1, n, generator=g, device=DEV))
+    f32, f64 = torch.float32, torch.float64
+    blocks = [slice(r, min(m, r + block)) for r in range(0, m, block)]
+
+    def plain_a(x, square=False, out=f32):
+        return torch.cat([fk.a_matvec_plain(A[:, b], x, square, out)
+                          for b in blocks], dim=1)
+
+    def plain_at(x, out=f32):
+        t = torch.zeros(1, n, dtype=out, device=DEV)
+        for b in blocks:
+            t += fk.at_matvec_plain(A[:, b], x[:, b].contiguous(), out)
+        return t
+
+    ref_y, ref_sq, ref_t = plain_a(w, out=f64), plain_a(d2, True, f64), \
+        plain_at(v, f64)
+    cases = {
+        "a_matvec": (lambda: fk.a_matvec(A, w), lambda: plain_a(w), ref_y),
+        "a_matvec/squared": (lambda: fk.a_matvec(A, d2, square=True),
+                             lambda: plain_a(d2, True), ref_sq),
+        "a_matvec/f64": (lambda: fk.a_matvec(A, w, out_dtype=f64),
+                         lambda: ref_y, ref_y),
+        "at_matvec": (lambda: fk.at_matvec(A, v), lambda: plain_at(v), ref_t),
+        "at_matvec/f64": (lambda: fk.at_matvec(A, v, out_dtype=f64),
+                          lambda: ref_t, ref_t),
+    }
+    checks = {}
+    for case, (kern, plain, ref) in cases.items():
+        label = f"{case}/{tag}"
+        got, ref_plain = kern(), plain()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            fail(phase, f"{label}: bad shape or non-finite")
+        if not torch.equal(got, kern()):
+            fail(phase, f"{label}: two launches differ")
+        checks[case] = {
+            "rel_err_vs_plain": _mx(got.double() - ref_plain.double())
+            / _mx(ref),
+            "rel_err_vs_f64": _mx(got.double() - ref) / _mx(ref)}
+        if not (checks[case]["rel_err_vs_plain"] <= TOL_PLAIN
+                and checks[case]["rel_err_vs_f64"] <= TOL_F64):
+            fail(phase, f"{label}: {checks[case]} (tolerances {TOL_PLAIN}, "
+                 f"{TOL_F64})")
+    del ref_y, ref_sq, ref_t
+    Af = A.float()
+    work = _bound(A.numel() * A.element_size() + 4 * (m + n), 2 * m * n)
+    out = {}
+    for name, kern, kern64, plain, lib, before, before64 in (
+            ("a_matvec", lambda: fk.a_matvec(A, w),
+             lambda: fk.a_matvec(A, w, out_dtype=f64), lambda: plain_a(w),
+             lambda: torch.mv(Af[0], w[0]), lambda: numerics.mv(A, w),
+             lambda: numerics.mv64(A, w)),
+            ("at_matvec", lambda: fk.at_matvec(A, v),
+             lambda: fk.at_matvec(A, v, out_dtype=f64), lambda: plain_at(v),
+             lambda: v[0] @ Af[0], lambda: numerics.mv(A.mT, v),
+             lambda: numerics.mv64(A.mT, v))):
+        slow = dict(reps=3, warm=1)
+        row = {"m": m, "n": n, "batch": 1, "a_dtype": str(A.dtype),
+               "ms": time_ms(kern), "f64_out_ms": time_ms(kern64),
+               "plain_ms": time_ms(plain, **slow),
+               "library_ms": time_ms(lib, **slow),
+               "route_before_ms": time_ms(before, **slow),
+               "route_before_f64_ms": time_ms(before64, **slow), **work,
+               "max_rel_err_vs_f64": max(c["rel_err_vs_f64"] for k, c in
+                                         checks.items()
+                                         if k.startswith(name))}
+        rows[name][tag] = row
+        out[name] = row
+    del Af
+    torch.cuda.empty_cache()
+    emit(f"{phase}/rows_2_3", tag=tag, checks=checks, **out)
+    return out
 
 
 def phase_kernels() -> dict:
@@ -699,14 +873,15 @@ def phase_kernels() -> dict:
             if name == "assemble_sym_batched":
                 _check_assembly(label, got[0], args[0], args[4])
             if name == "ata_apply":
-                # the t written out must be the t that was used: an
-                # at_matvec launch of the same kernel reproduces it exactly
-                if not torch.equal(got[1], fk.at_matvec(args[0], args[1])):
-                    fail("kernels", f"{label}: t differs from at_matvec")
+                # the t written out must be the t that was used
+                _t_was_used(label, case, *args, got)
                 # no atomics: a second launch on the same inputs gives the
                 # same bits
                 if not all(torch.equal(a, b) for a, b in zip(got, kern())):
                     fail("kernels", f"{label}: two launches differ")
+            if name in ("a_matvec", "at_matvec"):
+                A_, v_, w_, _, alpha_ = args
+                _row_bits(label, case, A_, v_, w_, alpha_, got)
             rows[name]["checks"][label] = {
                 "rel_err_vs_plain": worst_plain, "rel_err_vs_f64": worst_f64}
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -717,9 +892,13 @@ def phase_kernels() -> dict:
                      f"(tolerances {TOL_PLAIN}, {TOL_F64})")
         del args, refs
     _check_odd_shapes(rows)
-    wrong = _refuses_oversize_rows()
+    wrong = _oversize_rows()
     if wrong:
         fail("kernels", wrong)
+    torch.cuda.empty_cache()
+    A32 = _inputs(1, torch.float32, 11, M_ROWS_F32, N_ROWS_F32)[0]
+    _rows_b1(A32, rows, "b1_f32", "kernels")
+    del A32
     torch.cuda.empty_cache()
 
     # ---- times at the main path's batch, bf16-stored A --------------------
@@ -2576,21 +2755,26 @@ def phase_cli() -> None:
 
 class SplitTimer:
     """While active, wraps the pieces of a ``solve_large`` iteration and sums
-    each one's seconds, synchronised before and after: the Jacobi diagonal,
-    the assembly (row 4), the factor (row 10 with the diagonal kernel), the
-    preconditioner's solves (W-substitutions) and the library products (in
-    float32 sums on ``"sharded"``, float64 on ``"sharded_schur"``).  What is
-    left of the solve's seconds is the elementwise work, the collectives and
-    the host.  A piece missing from its module raises on entry, and
-    :meth:`never_called` names the pieces a run's stages must have called
-    and did not, so a renamed piece cannot report zero seconds."""
+    each one's seconds, synchronised before and after: the Jacobi diagonal
+    (row 2's squared stream), the assembly (row 4), the factor (row 10 with
+    the diagonal kernel), the preconditioner's solves (W-substitutions) and
+    the products with A (rows 2 and 3, rounded to float32 on
+    ``"sharded"``, float64 out on ``"sharded_schur"`` and the re-check).
+    What is left of the solve's seconds is the elementwise work, the
+    collectives and the host.  A piece missing from its module raises on
+    entry, and :meth:`never_called` names the pieces a run's stages must
+    have called and did not, so a renamed piece cannot report zero seconds.
+    ``library_products`` counts the library products with A the route
+    falls back to off the card (``schur.mv``, ``schur.mv64``): none on the
+    card."""
 
     PIECES = {"jacobi": (schur, "_diag_scan"),
               "assembly": (pk, "assemble_sym_batched"),
               "factor": (pk, "factor_lt_batched"),
               "solves": (schur, "_precond"),
-              "products": (schur, "mv"),
-              "products_f64": (schur, "mv64")}
+              "products": (schur, "_prod"),
+              "products_f64": (schur, "_prod64")}
+    LIBRARY = ((schur, "mv"), (schur, "mv64"))
     # the pieces each stage's route calls
     ROUTE = {"sharded": ("jacobi", "assembly", "factor", "solves",
                          "products"),
@@ -2600,6 +2784,16 @@ class SplitTimer:
     def __enter__(self):
         self.seconds = dict.fromkeys(self.PIECES, 0.0)
         self.calls = dict.fromkeys(self.PIECES, 0)
+        self.library_products = 0
+        self._lib = {}
+        for mod, name in self.LIBRARY:
+            fn = getattr(mod, name)
+            self._lib[name] = fn
+
+            def counted(*a, _fn=fn, **kw):
+                self.library_products += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
         self._orig = {}
         for label, (mod, name) in self.PIECES.items():
             fn = getattr(mod, name)     # AttributeError for a renamed piece
@@ -2619,6 +2813,8 @@ class SplitTimer:
     def __exit__(self, *exc):
         for label, (mod, name) in self.PIECES.items():
             setattr(mod, name, self._orig[label])
+        for mod, name in self.LIBRARY:
+            setattr(mod, name, self._lib[name])
 
     def never_called(self, routes) -> list:
         want = {k for r in routes for k in self.ROUTE[r]}
@@ -2946,10 +3142,14 @@ def _large_run(phase: str, lp, star: float, opts, mesh=None,
         res["split_seconds"] = dict(timer.seconds)
         res["split_seconds"]["rest"] = secs - sum(timer.seconds.values())
         res["split_calls"] = timer.calls
+        res["library_products"] = timer.library_products
         never = timer.never_called({c["linsys"] for c in rec.calls})
         if never:
             problems.append(f"{phase}: pieces never called: {never}; was a "
                             f"function renamed?")
+        if timer.library_products:
+            problems.append(f"{phase}: {timer.library_products} library "
+                            "products with A (rows 2 and 3 take them all)")
     if not (sol.optimal and sol.rel_gap <= 1e-6 and err <= LARGE_OBJ_TOL):
         problems.append(f"{phase}: {sol.status_name}, gap {sol.rel_gap:.2e}, "
                         f"objective {err:.2e} off its optimum")
@@ -2999,6 +3199,8 @@ def phase_large(rows: dict) -> dict:
     for name, row in res["held"]["last"].items():
         rows[name]["large_b1"].update(
             {k: row[k] for k in ("plain_ms", "library_ms")})
+    # rows 2 and 3 on config 4's A, after the solve
+    res["rows_2_3"] = _rows_b1(lp.A.unsqueeze(0), rows, "large_b1", phase)
     res.update(generate_seconds=gen_s, far_corners=corners,
                kernel_times=kernel_times,
                launches_rows_4_10={k: launched[k] for k in _LARGE})

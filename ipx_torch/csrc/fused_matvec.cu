@@ -1,20 +1,16 @@
-// One-stream matvecs against a batched dense A (row-major, (B, m, n), stored
-// float32 or bfloat16):
+// One-stream evaluation against a batched dense A (row-major, (B, m, n),
+// stored float32 or bfloat16):
 //
-//   MODE_ATA  t = A^T v,  y = A (alpha * (t + beta) + w)   one read of A
-//   MODE_A    y = A w
-//   MODE_AT   t = A^T v
-//   MODE_A2   y = (A o A) w     the elementwise square of A, same stream as
-//                               MODE_A: diag(A diag(w) A^T) without a squared
-//                               copy of A in device memory
+//   t = A^T v,  y = A (alpha * (t + beta) + w)   one read of A
 //
-// Replaces the Pallas column-stripe kernels of ipx/kernels/fused.py:
-// _ata_kernel (entry ata_apply), _a_kernel (a_matvec), _at_kernel (at_matvec).
+// Replaces the Pallas column-stripe kernel of ipx/kernels/fused.py:
+// _ata_kernel (entry ata_apply).  The two halves on their own (_a_kernel,
+// _at_kernel) are the row streams of row_matvec.cu.
 //
-// Bound on this card: bytes.  Each call does 2 (or 4, for ATA) flops per
-// element of A, far below the flops-per-byte at which an H100 stops waiting
-// for memory, so the least time is bytes(A) / memory rate, and the point of
-// MODE_ATA is to pay it once where two dependent matvecs pay it twice.
+// Bound on this card: bytes.  Each call does 4 flops per element of A, far
+// below the flops-per-byte at which an H100 stops waiting for memory, so the
+// least time is bytes(A) / memory rate, and the point is to pay it once where
+// two dependent matvecs pay it twice.
 //
 // Design.  One block per (instance, column stripe of W columns).  The block
 // asks for its whole m x W stripe at once with asynchronous 16-byte copies
@@ -71,7 +67,6 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 256;
 constexpr int NCHUNK = 8;           // row chunks of the asynchronous copy
 constexpr int CLUSTER = 2;          // stripes whose partial y a cluster sums
-constexpr int MODE_ATA = 0, MODE_A = 1, MODE_AT = 2, MODE_A2 = 3;
 constexpr size_t SMEM_LIMIT = 227u * 1024u;
 
 template <typename T> __device__ __forceinline__ T zero_of();
@@ -150,8 +145,8 @@ __device__ __forceinline__ void unpack(const uint4& g, float (&f)[8]) {
 
 // one stripe row (W stored elements) dotted with u (W doubles), read a
 // granule at a time, the even and the odd entries in two chains that meet at
-// the end; SQ squares the row's entries first (exact in double)
-template <bool SQ, typename T>
+// the end
+template <typename T>
 __device__ __forceinline__ double row_dot(const T* row, int r, const double* u,
                                           int lg) {
     constexpr int VEC = 16 / int(sizeof(T));
@@ -164,8 +159,8 @@ __device__ __forceinline__ double row_dot(const T* row, int r, const double* u,
 #pragma unroll
         for (int e = 0; e < VEC; e += 2) {
             const double x0 = f[e], x1 = f[e + 1];
-            even = fma(SQ ? x0 * x0 : x0, u[g * VEC + e], even);
-            odd = fma(SQ ? x1 * x1 : x1, u[g * VEC + e + 1], odd);
+            even = fma(x0, u[g * VEC + e], even);
+            odd = fma(x1, u[g * VEC + e + 1], odd);
         }
     }
     return even + odd;
@@ -184,7 +179,7 @@ inline size_t stripe_smem_bytes(int m, int W, int itemsize) {
            + size_t(WARPS + 1) * W * sizeof(double) + size_t(m) * sizeof(double);
 }
 
-template <typename T, int MODE>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
               const float* __restrict__ alpha, const float* __restrict__ beta,
@@ -192,7 +187,6 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
               double* __restrict__ ypart, int m, int n, int lw, int vec_ok,
               size_t as_bytes) {
     extern __shared__ uint4 smem_raw[];
-    constexpr bool ONLY_A = MODE == MODE_A || MODE == MODE_A2;
     constexpr int VEC = 16 / int(sizeof(T));
     const int W = 1 << lw;
     const int lg = lw - (sizeof(T) == 2 ? 3 : 2);  // 16-byte granules a row
@@ -212,7 +206,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
     const T* Ab = A + b * size_t(m) * size_t(n);
     const int rc = (m + NCHUNK - 1) / NCHUNK;      // rows of a copy chunk
 
-    // ---- phase 0: ask for the stripe; stage v (or u) ------------------------
+    // ---- phase 0: ask for the stripe; stage v ------------------------------
     if (vec_ok) {
         if (tid == 0)
             for (int c = 0; c < NCHUNK; ++c) bar_init(bars + c, THREADS);
@@ -236,11 +230,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
                 ? Ab[size_t(r) * n + c0 + c] : zero_of<T>();
         }
     }
-    if (!ONLY_A) {
-        for (int i = tid; i < m; i += THREADS) vs[i] = double(v[b * m + i]);
-    } else if (tid < W) {
-        us[tid] = (c0 + tid < n) ? double(w[b * n + c0 + tid]) : 0.0;
-    }
+    for (int i = tid; i < m; i += THREADS) vs[i] = double(v[b * m + i]);
     __syncthreads();
 
     // ---- phase 1: t = A_S^T v, complete inside the block.  Thread (rg, q)
@@ -248,7 +238,7 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
     // one shared-memory load for VEC entries; the column sums go through a
     // fixed shuffle tree over the warp's lanes with the same q, then over
     // the warps in order --------------------------------------------------
-    if (!ONLY_A) {
+    {
         const int q = tid & (G - 1), rg = tid >> lg, RG = THREADS >> lg;
         const int lane = tid & 31, warp = tid >> 5;
         double acc[VEC];
@@ -281,16 +271,14 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
             const int col = c0 + tid;
             const bool in = col < n;
             if (in) t_out[b * n + col] = t;
-            if (MODE == MODE_ATA) {
-                const size_t o = b * n + col;
-                const float a = (alpha && in) ? alpha[o] : 0.f;
-                const float be = (beta && in) ? beta[o] : 0.f;
-                const float ww = (w && in) ? w[o] : 0.f;
-                // (t + beta) rounded first; no contraction into an FMA, so
-                // the plain version reproduces u exactly
-                const float e = __fadd_rn(t, be);
-                us[tid] = in ? double(__fadd_rn(__fmul_rn(a, e), ww)) : 0.0;
-            }
+            const size_t o = b * n + col;
+            const float a = (alpha && in) ? alpha[o] : 0.f;
+            const float be = (beta && in) ? beta[o] : 0.f;
+            const float ww = (w && in) ? w[o] : 0.f;
+            // (t + beta) rounded first; no contraction into an FMA, so the
+            // plain version reproduces u exactly
+            const float e = __fadd_rn(t, be);
+            us[tid] = in ? double(__fadd_rn(__fmul_rn(a, e), ww)) : 0.0;
         }
         __syncthreads();
     }
@@ -298,10 +286,9 @@ stripe_kernel(const T* __restrict__ A, const float* __restrict__ v,
     // ---- phase 2: this stripe's share of y = A u, parked in the first 8
     // bytes of the row's own stripe storage (only this thread reads the row
     // here, and the value depends on every entry it read) -------------------
-    if constexpr (MODE != MODE_AT) {
+    {
         for (int i = tid; i < m; i += THREADS) {
-            if (ONLY_A && vec_ok) bar_wait(bars + i / rc);
-            const double y = row_dot<MODE == MODE_A2>(As + i * W, i, us, lg);
+            const double y = row_dot(As + i * W, i, us, lg);
             *reinterpret_cast<double*>(As + i * W) = y;
         }
         // ---- the cluster's stripes: block r sums its share of the rows over
@@ -335,7 +322,7 @@ sum_stripes_kernel(const double* __restrict__ ypart, float* __restrict__ y,
     y[b * m + i] = float(acc);                // the one rounding of y
 }
 
-template <typename T, int MODE>
+template <typename T>
 int launch(const void* A, const float* v, const float* alpha,
            const float* beta, const float* w, float* y, float* t,
            double* ypart, int B, int m, int n, int W, cudaStream_t stream) {
@@ -343,7 +330,7 @@ int launch(const void* A, const float* v, const float* alpha,
     while ((1 << lw) < W) ++lw;
     const size_t as_bytes = round16(size_t(m) * W * sizeof(T));
     const size_t smem = stripe_smem_bytes(m, W, int(sizeof(T)));
-    auto kern = stripe_kernel<T, MODE>;
+    auto kern = stripe_kernel<T>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
@@ -351,10 +338,9 @@ int launch(const void* A, const float* v, const float* alpha,
     const int vec_ok = (n % VEC == 0) && (W % VEC == 0)
                        && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
     const int ns = (n + W - 1) / W;
-    // t alone needs no cluster step; the others pad the grid to whole pairs
-    // (a padding stripe is all columns past n: its partial y is zeros)
-    const int cs = MODE == MODE_AT ? 1 : CLUSTER;
-    const int nsp = (ns + cs - 1) / cs * cs;
+    // the grid padded to whole pairs (a padding stripe is all columns past
+    // n: its partial y is zeros)
+    const int nsp = (ns + CLUSTER - 1) / CLUSTER * CLUSTER;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(nsp, B);
     cfg.blockDim = dim3(THREADS);
@@ -362,7 +348,7 @@ int launch(const void* A, const float* v, const float* alpha,
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.x = CLUSTER;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
@@ -372,55 +358,28 @@ int launch(const void* A, const float* v, const float* alpha,
     if (err != cudaSuccess) return int(err);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
-    if (MODE != MODE_AT) {
-        dim3 g2((m + THREADS - 1) / THREADS, B);
-        sum_stripes_kernel<<<g2, THREADS, 0, stream>>>(ypart, y, m, nsp / cs);
-        err = cudaGetLastError();
-    }
-    return int(err);
-}
-
-template <typename T>
-int dispatch(int mode, const void* A, const float* v, const float* alpha,
-             const float* beta, const float* w, float* y, float* t,
-             double* ypart, int B, int m, int n, int W, cudaStream_t s) {
-    switch (mode) {
-    case MODE_ATA:
-        return launch<T, MODE_ATA>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                   W, s);
-    case MODE_A:
-        return launch<T, MODE_A>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                   W, s);
-    case MODE_AT:
-        return launch<T, MODE_AT>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                   W, s);
-    case MODE_A2:
-        return launch<T, MODE_A2>(A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                                   W, s);
-    }
-    return -1;
+    dim3 g2((m + THREADS - 1) / THREADS, B);
+    sum_stripes_kernel<<<g2, THREADS, 0, stream>>>(ypart, y, m, nsp / CLUSTER);
+    return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// mode: 0 ata (needs v; alpha/beta/w may be null = zeros; writes y, t),
-//       1 a   (needs w; writes y),  2 at (needs v; writes t),
-//       3 a squared (needs w; writes y = (A o A) w).
-// ypart: (B, ceil(ceil(n / W) / 2), m) double scratch for modes 0, 1, 3.
-// Returns 0, a cudaError_t, or -1 for arguments the kernels do not take.
-extern "C" int ipx_fused_matvec(int mode, const void* A, int a_is_bf16,
-                                const float* v, const float* alpha,
-                                const float* beta, const float* w, float* y,
-                                float* t, double* ypart, int B, int m, int n,
-                                int W, void* stream) {
+// v needed; alpha/beta/w may be null (zeros); writes y and t.
+// ypart: (B, ceil(ceil(n / W) / 2), m) double scratch.
+// Returns 0, a cudaError_t, or -1 for arguments the kernel does not take.
+extern "C" int ipx_ata_apply(const void* A, int a_is_bf16, const float* v,
+                             const float* alpha, const float* beta,
+                             const float* w, float* y, float* t,
+                             double* ypart, int W, int B, int m, int n,
+                             void* stream) {
     if (B < 1 || m < 1 || n < 1 || B > 65535) return -1;
     if (W != 8 && W != 16 && W != 32 && W != 64) return -1;
     if (stripe_smem_bytes(m, W, a_is_bf16 ? 2 : 4) > SMEM_LIMIT)
         return -1;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (a_is_bf16)
-        return dispatch<__nv_bfloat16>(mode, A, v, alpha, beta, w, y, t,
-                                       ypart, B, m, n, W, s);
-    return dispatch<float>(mode, A, v, alpha, beta, w, y, t, ypart, B, m, n,
-                           W, s);
+        return launch<__nv_bfloat16>(A, v, alpha, beta, w, y, t, ypart, B, m,
+                                     n, W, s);
+    return launch<float>(A, v, alpha, beta, w, y, t, ypart, B, m, n, W, s);
 }

@@ -21,7 +21,7 @@ import torch
 from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.kernels import fused as fk
 from ipx_torch.linsys import augmented, normal_eq, schur
-from ipx_torch.numerics import inf_norm, mv, mv_wide, vdot
+from ipx_torch.numerics import inf_norm, mv, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
@@ -63,15 +63,19 @@ def _matvecs(A: torch.Tensor, opts: SolverOptions):
     and ``"sharded_schur"`` (their endgame is measured by these residuals:
     with one-chain float32 sums the CPU's batches of degenerate LPs lose
     lanes there).  On the sharded routes A is this rank's column block and
-    the products go through the ranks (``schur.matvecs``).  A bf16-stored A
-    cannot meet an f32 vector in a library matmul: the kernels upcast it in
-    registers, ``mv`` makes a transient copy, a block of rows at a time."""
+    the products go through the ranks (``schur.matvecs``); the augmented
+    routes' are ``augmented._products``.  On the card the sharded and
+    augmented routes' products are rows 2 and 3
+    (``schur.use_row_kernels``).  A bf16-stored A cannot meet an f32 vector
+    in a library matmul: the kernels upcast it in registers, ``mv`` makes a
+    transient copy, a block of rows at a time."""
     if normal_eq.use_fused_matvec(opts, A):
         return (lambda w: fk.a_matvec(A, w)), (lambda v: fk.at_matvec(A, v))
     if opts.linsys.startswith("sharded"):
         return schur.matvecs(A, wide=opts.linsys == "sharded_schur")
-    prod = mv_wide if opts.linsys.startswith("augmented") else mv
-    return (lambda w: prod(A, w)), (lambda v: prod(A.mT, v))
+    if opts.linsys.startswith("augmented"):
+        return augmented._products(A, opts)
+    return (lambda w: mv(A, w)), (lambda v: mv(A.mT, v))
 
 
 def max_step(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:

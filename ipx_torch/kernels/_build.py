@@ -20,8 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_matvec", "assemble_sym", "factor_panels", "fused_panel",
-           "solve_panels", "cholesky_right", "accum_panel")
+SOURCES = ("fused_matvec", "row_matvec", "assemble_sym", "factor_panels",
+           "fused_panel", "solve_panels", "cholesky_right", "accum_panel")
 # Largest m of the panel-major factor and pair-solve
 # (``kernels.cholesky.MAX_M``).  The sources are compiled with it and
 # ``csrc/solve_panels.cu`` fails to compile if it outgrows one block's shared

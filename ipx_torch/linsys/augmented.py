@@ -28,10 +28,11 @@ keeps cond ~ 1/mu.  Two routes solve it:
 H^-1 = x / (s + reg_p x) is capped at 1/reg_p, so the reduced matrix never
 conditions like the raw x/s normal equations.  Every tensor has a leading
 batch dimension; ``reg_scale`` is a per-lane (B,) tensor or a float.  The
-products with A are library products summed in float64
-(``numerics.mv_wide``; on ``"sharded_schur"`` through the all-reduce,
-``schur.matvecs``), as are the residuals ``ipm.mehrotra`` measures on these
-routes.
+products with A are summed in float64 and rounded once, as are the
+residuals ``ipm.mehrotra`` measures on these routes: on the card rows 2 and
+3 (``kernels.fused.a_matvec`` / ``at_matvec``, ``schur.use_row_kernels``),
+on the CPU library products (``numerics.mv_wide``, a float64 copy of A); on
+``"sharded_schur"`` through the all-reduce (``schur.matvecs``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ipx_torch.kernels import fused as fk
 from ipx_torch.linsys import normal_eq, schur
 from ipx_torch.linsys.normal_eq import NormalEqFactor
 from ipx_torch.numerics import mv_wide
@@ -46,10 +48,14 @@ from ipx_torch.options import SolverOptions
 
 
 def _products(A: torch.Tensor, opts: SolverOptions):
-    """(w -> A w, v -> A^T v) summed in float64, through the ranks on
-    ``"sharded_schur"``."""
+    """(w -> A w, v -> A^T v) summed in float64 and rounded once: through
+    the ranks on ``"sharded_schur"``, rows 2 and 3 on the card, else
+    library products."""
     if opts.linsys == "sharded_schur":
         return schur.matvecs(A, wide=True)
+    if schur.use_row_kernels(opts.linsys, A.dtype, A.device):
+        return ((lambda w: fk.a_matvec(A, w.contiguous())),
+                (lambda v: fk.at_matvec(A, v.contiguous())))
     return (lambda w: mv_wide(A, w)), (lambda v: mv_wide(A.mT, v))
 
 

@@ -9,10 +9,13 @@ and c are formed, or float32 with ``--f32``), then times one call of each
 piece of a ``linsys="sharded"`` iteration at p = 1 (CUDA events): the Jacobi
 diagonal, the assembly (row 4), the factor (row 10 with the diagonal
 kernel), one preconditioner apply (the W-substitutions), one product A w and
-A^T v in float32 and in float64 sums (the library, a block of rows at a
-time), and then ``solve_large`` capped at ``--iters`` iterations with the
-endgame off, its seconds and peak memory.  One JSON line a step, the card's
-name and power limit first.
+A^T v rounded to float32 and in float64 (the route's, ``schur._prod`` and
+``_prod64``: rows 2 and 3 on the card), the same products through the
+library route they replaced (a float32 or float64 copy of A a block of rows
+at a time, then a library product: ``numerics.mv``, ``mv64``), and then
+``solve_large`` capped at ``--iters`` iterations with the endgame off, its
+seconds, peak memory and launches.  One JSON line a step, the card's name
+and power limit first.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ipx_torch import mesh as meshlib  # noqa: E402
 from ipx_torch.devinfo import nvidia_smi_line, time_ms  # noqa: E402
 from ipx_torch.kernels import _build  # noqa: E402
 from ipx_torch.kernels import cholesky as pk  # noqa: E402
+from ipx_torch.kernels import fused as fk  # noqa: E402
 from ipx_torch.linsys import schur  # noqa: E402
 from ipx_torch.numerics import mv, mv64  # noqa: E402
 from ipx_torch.problem.generate import random_feasible_large_device  # noqa: E402
@@ -80,10 +84,14 @@ def main() -> int:
         out["precond_ms"] = time_ms(lambda: schur._precond(fac, v, row),
                                     reps=3, warm=1)
         del fac, LT, W
-        out["a_w_ms"] = time_ms(lambda: mv(A, w), reps=3, warm=1)
-        out["at_v_ms"] = time_ms(lambda: mv(A.mT, v), reps=3, warm=1)
-        out["a_w_f64_ms"] = time_ms(lambda: mv64(A, w), reps=3, warm=1)
-        out["at_v_f64_ms"] = time_ms(lambda: mv64(A.mT, v), reps=3, warm=1)
+        for tag, fn in (("", schur._prod), ("_f64", schur._prod64)):
+            out[f"a_w{tag}_ms"] = time_ms(lambda: fn(A, w, False))
+            out[f"at_v{tag}_ms"] = time_ms(lambda: fn(A, v, True))
+        for tag, fn in (("", mv), ("_f64", mv64)):
+            out[f"library_a_w{tag}_ms"] = time_ms(lambda: fn(A, w), reps=3,
+                                                  warm=1)
+            out[f"library_at_v{tag}_ms"] = time_ms(lambda: fn(A.mT, v),
+                                                   reps=3, warm=1)
     print(json.dumps(out), flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -99,7 +107,8 @@ def main() -> int:
         "rp_rel": sol.rp_rel, "rd_rel": sol.rd_rel,
         "obj_err": abs(sol.objective - star) / (1 + abs(star)),
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "launches": {k: v for k, v in pk.LAUNCHES.items() if v}}),
+        "launches": {k: v for k, v in {**fk.LAUNCHES, **pk.LAUNCHES}.items()
+                     if v}}),
         flush=True)
     return 0
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The augmented routes' library matrix-vector products on the card: what
-their transient copies of a bf16-stored A cost, and how they sum.
+"""The augmented routes' matrix-vector products on the card: rows 2 and 3
+(``a_matvec`` / ``at_matvec``, what the routes take on the card) beside the
+library products they replaced, and how each sums.
 
     python3 probes/rescue_matvecs.py [B]
 
@@ -8,13 +9,17 @@ At B lanes (default 40: the lanes the main path's batch of 256 leaves
 STALLED) of the contract shape (m=1024, n=2048, A stored bf16, seed 0):
 
 - the time of A @ w and A^T @ v through ``numerics.mv`` (a float32 copy of
-  A), ``numerics.mv_wide`` (a float64 copy, what the augmented routes take)
-  and the kernels ``a_matvec`` / ``at_matvec`` (no copy, float64 sums);
+  A), ``numerics.mv_wide`` (a float64 copy, what the augmented routes took
+  before rows 2 and 3) and the kernels ``a_matvec`` / ``at_matvec`` (no
+  copy, float64 sums);
 - the error of each against a float64 product, relative to its largest
   entry, beside the error of one float32 chain an entry;
 - on the Schur-form route (``throughput(linsys="augmented_schur")``): the
-  library products one Mehrotra step makes (counted with ``mv_wide``
-  wrapped), the step's time, and the products' share of it.
+  products with A one Mehrotra step makes (counted with the row kernels'
+  wrappers wrapped; the squared stream of the reduced factor's Jacobi scale
+  not counted), the step's time on rows 2 and 3 and with the route forced
+  back to ``mv_wide`` (``schur.use_row_kernels`` patched), and the
+  products' share of each.
 
 Prints one JSON line, the card's name and power limit in it.
 """
@@ -33,7 +38,7 @@ from ipx_torch import numerics                            # noqa: E402
 from ipx_torch.devinfo import nvidia_smi_line, time_ms    # noqa: E402
 from ipx_torch.ipm import batched, mehrotra               # noqa: E402
 from ipx_torch.kernels import fused as fk                 # noqa: E402
-from ipx_torch.linsys import augmented                    # noqa: E402
+from ipx_torch.linsys import schur                        # noqa: E402
 from ipx_torch.problem.generate import random_feasible_batch_device  # noqa
 
 M, N = 1024, 2048
@@ -81,7 +86,7 @@ def main() -> int:
                      "at_v_rel_err": _rel(tr(), ref_tr)}
     out["one_float32_chain_a_w_rel_err"] = _rel(_one_chain(A, w), ref_fwd)
 
-    # one Mehrotra step on the Schur-form route, its library products
+    # one Mehrotra step on the Schur-form route, its products with A
     # counted
     opts = ipx_torch.SolverOptions.throughput(
         a_storage="bfloat16", linsys="augmented_schur",
@@ -89,27 +94,39 @@ def main() -> int:
     lp = gb.lp
     st, fac_aat = batched.batch_starting_state(lp, opts)
     calls = {"n": 0}
-    wide = numerics.mv_wide
+    a_mv, at_mv = fk.a_matvec, fk.at_matvec
 
-    def counted(a, x):
+    def a_counted(A_, w_, square=False, out_dtype=torch.float32):
+        calls["n"] += not square
+        return a_mv(A_, w_, square, out_dtype)
+
+    def at_counted(A_, v_, out_dtype=torch.float32):
         calls["n"] += 1
-        return wide(a, x)
+        return at_mv(A_, v_, out_dtype)
 
-    mehrotra.mv_wide = augmented.mv_wide = counted
+    fk.a_matvec, fk.at_matvec = a_counted, at_counted
     try:
         mehrotra.mehrotra_step(lp, st, opts, fac_aat)
         torch.cuda.synchronize()
     finally:
-        mehrotra.mv_wide = augmented.mv_wide = wide
-    step_ms = time_ms(lambda: mehrotra.mehrotra_step(lp, st, opts, fac_aat),
-                      reps=3, warm=1)
-    per = (out["mv_wide"]["a_w_ms"] + out["mv_wide"]["at_v_ms"]) / 2
+        fk.a_matvec, fk.at_matvec = a_mv, at_mv
+    step = lambda: mehrotra.mehrotra_step(lp, st, opts, fac_aat)  # noqa
+    step_ms = time_ms(step, reps=3, warm=1)
+    use_rows = schur.use_row_kernels
+    schur.use_row_kernels = lambda linsys, dtype, device: False
+    try:
+        library_step_ms = time_ms(step, reps=3, warm=1)
+    finally:
+        schur.use_row_kernels = use_rows
+    wide = (out["mv_wide"]["a_w_ms"] + out["mv_wide"]["at_v_ms"]) / 2
     kern = (out["kernels"]["a_w_ms"] + out["kernels"]["at_v_ms"]) / 2
     out["schur_step"] = {
-        "library_products": calls["n"], "step_ms": step_ms,
-        "products_ms": calls["n"] * per,
-        "products_share": calls["n"] * per / step_ms,
-        "same_products_on_the_kernels_ms": calls["n"] * kern}
+        "products": calls["n"], "step_ms": step_ms,
+        "products_ms": calls["n"] * kern,
+        "products_share": calls["n"] * kern / step_ms,
+        "library_step_ms": library_step_ms,
+        "library_products_ms": calls["n"] * wide,
+        "library_products_share": calls["n"] * wide / library_step_ms}
     print(json.dumps({"probe": "rescue_matvecs", "batch": B, "m": M, "n": N,
                       "card": nvidia_smi_line(), **out}), flush=True)
     return 0

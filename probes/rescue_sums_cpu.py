@@ -30,7 +30,6 @@ import ipx_torch  # noqa: E402
 from ipx.problem.generate import random_feasible_lp  # noqa: E402
 from ipx.problem.lp import make_lp as jmake_lp  # noqa: E402
 from ipx_torch import numerics  # noqa: E402
-from ipx_torch.ipm import mehrotra  # noqa: E402
 from ipx_torch.linsys import augmented  # noqa: E402
 from ipx_torch.problem.lp import make_lp as tmake_lp  # noqa: E402
 
@@ -45,13 +44,13 @@ def main() -> int:
             options=ipx.SolverOptions(**kw))}
         for variant, prod in (("port", numerics.mv_wide),
                               ("port_one_chain_sums", numerics.mv)):
-            mehrotra.mv_wide = augmented.mv_wide = prod
+            augmented.mv_wide = prod
             try:
                 rows[variant] = ipx_torch.solve_batch(
                     [tmake_lp(g.c, g.A, g.b, device="cpu") for g in gs],
                     options=ipx_torch.SolverOptions(**kw), device="cpu")
             finally:
-                mehrotra.mv_wide = augmented.mv_wide = numerics.mv_wide
+                augmented.mv_wide = numerics.mv_wide
         print(json.dumps({"linsys": linsys, "instances": B, **{
             k: {"optimal": sum(s.optimal for s in v),
                 "iterations": sum(s.iterations for s in v)}

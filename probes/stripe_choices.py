@@ -1,11 +1,11 @@
-"""Stripe width of the one-stream matvec kernels on the GPU.
+"""Stripe width of ``ata_apply``'s kernel (row 1) on the GPU.
 
     python3 probes/stripe_choices.py [--batch 256] [--m 1024] [--n 2048]
 
-Times ``ata_apply``, ``a_matvec`` and ``at_matvec`` (bf16 A, CUDA events)
-with 16- and 32-column stripes, and says whether y has the same bits as with
-the wrappers' own width (``stripe_cols``, the reference row; the f64 sums
-meet in another association, rounded once to f32).  One JSON line per
+Times ``ata_apply`` (bf16 A, CUDA events) with 16- and 32-column stripes,
+and says whether y has the same bits as with the wrapper's own width
+(``stripe_cols``, the reference row; the f64 sums meet in another
+association, rounded once to f32).  One JSON line per
 choice; the card's name and power limit are in the first.  Needs a CUDA
 device.
 """
@@ -49,8 +49,6 @@ def main() -> int:
         return {"choice": tag,
                 "ata_apply_ms": time_ms(
                     lambda: fk.ata_apply(A, v, alpha, w, beta=beta)),
-                "a_matvec_ms": time_ms(lambda: fk.a_matvec(A, w)),
-                "at_matvec_ms": time_ms(lambda: fk.at_matvec(A, v)),
                 "y_same_bits": bool(torch.equal(y, ref))}
 
     try:

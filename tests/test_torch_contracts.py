@@ -244,28 +244,31 @@ def test_wrappers_count_no_launch_on_cpu():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_oversize_rows_stay_on_the_fused_route_and_are_refused(dtype):
-    """An A with more rows than one block's shared memory holds is still the
-    kernels' to take under ``matvec_backend="fused"``: the route does not
-    look at the shape, and the launch path refuses it before any device call
-    instead of handing it to library matmuls."""
+    """An A with more rows than one block's shared memory holds as a column
+    stripe is still the kernels' to take under ``matvec_backend="fused"``:
+    the route does not look at the shape.  ``ata_apply`` (row 1, whose
+    stripe caps m) refuses it before any device call instead of handing it
+    to library matmuls; rows 2 and 3 stream rows, keep nothing of A in
+    shared memory and have a tiling for it."""
     from ipx_torch.linsys import normal_eq
     m, n = 1 << 15, 8
     big = torch.zeros(1, m, n, dtype=dtype)
-    assert tfk.stripe_cols(m, big.element_size()) is None
+    isz = big.element_size()
+    assert tfk.stripe_cols(m, isz) is None
     fused = ipx_torch.SolverOptions.throughput(
         chol_backend="xla", augmented_fallback=False)
     assert normal_eq.use_fused_matvec(fused, big)
     assert not normal_eq.use_fused_matvec(
         fused.replace(matvec_backend="xla"), big)
     assert not normal_eq.use_fused_matvec(fused, big.double())
-    v, w = torch.zeros(1, m), torch.zeros(1, n)
     before = dict(tfk.LAUNCHES)
-    for name, mode, args in (("ata_apply", 0, (v, w, None, w)),
-                             ("a_matvec", 1, (None, None, None, w)),
-                             ("at_matvec", 2, (v, None, None, None))):
-        with pytest.raises(ValueError, match="do not fit"):
-            tfk._launch(name, mode, big, *args)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfk._stripe_width(big)
     assert dict(tfk.LAUNCHES) == before
+    # rows 2 and 3: one span of w (n is narrow), m / tile partial t
+    assert tfk.a_span(n, isz) == 32 * 16 // isz
+    assert tfk.a_partials(n, isz) == 0
+    assert tfk.at_partials(m, isz) == m // tfk.at_tile(isz)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

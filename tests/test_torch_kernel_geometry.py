@@ -489,3 +489,120 @@ def test_matvec_wrappers_refuse_wrong_inputs(name, call, exc):
     with pytest.raises(exc):
         call()
     assert dict(tfk.LAUNCHES) == before
+
+
+# --------------------------------------------------------------------------
+# rows 2 and 3: the row streams of csrc/row_matvec.cu
+# --------------------------------------------------------------------------
+
+def _row_blocks(m: int, n: int, itemsize: int) -> tuple[int, int]:
+    """Blocks an instance of rows 2 and 3 launches, as ``launch_a`` and
+    ``launch_at`` of the source count them: (row blocks of ROWS_A x spans,
+    tiles x warp steps of 32 granules)."""
+    step = 32 * 16 // itemsize
+    a = -(-m // tfk._ROWS_A) * -(-n // tfk.a_span(n, itemsize))
+    at = -(-m // tfk.at_tile(itemsize)) * -(-n // step)
+    return a, at
+
+
+def test_row_constants_match_the_source():
+    c = _constexprs("row_matvec.cu")
+    text = (CSRC / "row_matvec.cu").read_text()
+    # the grids _row_blocks mirrors
+    assert ("const int nrb = (m + ROWS_A - 1) / ROWS_A, "
+            "ns = (n + span - 1) / span;") in text
+    assert ("const int nch = (n + CW - 1) / CW, "
+            "nt = (m + tile - 1) / tile;") in text
+    assert c["THREADS"] == tfk._ROW_THREADS
+    assert c["SPAN_MAX"] == tfk._SPAN_MAX
+    assert c["ROWS_A"] == tfk._ROWS_A
+    assert c["TILE_BYTES"] == tfk._TILE_BYTES
+    # w's span as doubles and row 3's v and warp sums (bf16: 256 columns a
+    # block) are static shared memory, under the 48 KB a launch gets
+    # without asking
+    assert c["SPAN_MAX"] * 8 <= 48 * 1024
+    assert (c["TILE_MAX"] + c["WARPS"] * 256) * 8 <= 48 * 1024
+    # a block's rows are whole passes of its warps
+    assert c["ROWS_A"] % (c["WARPS"] * c["RW"]) == 0
+
+
+def test_row_entry_args_match_the_source():
+    """The argument types the wrappers give the C entry points of rows 1-3,
+    against their declarations: a pointer for each pointer, a C int for
+    each int."""
+    import ctypes
+
+    kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int}
+    for name, (source, symbol, args) in tfk._ENTRIES.items():
+        text = (CSRC / f"{source}.cu").read_text()
+        found = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+        assert found, name
+        params = [p.strip() for p in found.group(1).split(",")]
+        want = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
+        assert args == want, (name, params)
+
+
+@pytest.mark.parametrize("n,itemsize,span,partials", [
+    (2048, 2, 2048, 0),     # the main path: one span, y written at once
+    (2048, 4, 2048, 0),
+    (2045, 2, 2048, 0),     # rounded up to a warp's step (256 bf16 columns)
+    (100, 4, 128, 0),       # (128 f32 columns)
+    (4096, 2, 4096, 0),
+    (4097, 2, 4096, 2),
+    (16384, 4, 4096, 4),    # large_f32
+    (65536, 2, 4096, 16),   # config 4: 16 partial y a row
+])
+def test_row_a_span_and_partials(n, itemsize, span, partials):
+    assert tfk.a_span(n, itemsize) == span
+    assert tfk.a_partials(n, itemsize) == partials
+    # what the C entry accepts: a multiple of a warp's step, at most
+    # SPAN_MAX
+    step = 32 * 16 // itemsize
+    assert span % step == 0 and step <= span <= tfk._SPAN_MAX
+
+
+@pytest.mark.parametrize("m,itemsize,tile,partials", [
+    (1024, 2, 2048, 0),     # the main path: one tile, t written at once
+    (1024, 4, 1024, 0),
+    (1000, 4, 1024, 0),
+    (2100, 2, 2048, 2),     # chip_smoke.py's odd shape: a ragged tile
+    (2100, 4, 1024, 3),
+    (8192, 4, 1024, 8),     # large_f32
+    (32768, 2, 2048, 16),   # config 4
+])
+def test_row_at_tile_and_partials(m, itemsize, tile, partials):
+    assert tfk.at_tile(itemsize) == tile
+    assert tfk.at_partials(m, itemsize) == partials
+    # the partial t is 8 bytes a column for every TILE_BYTES of it
+    assert 8 / (tile * itemsize) <= 0.002
+
+
+@pytest.mark.parametrize("m,n,itemsize", [
+    (32768, 65536, 2), (32768, 65536, 4), (8192, 16384, 4), (1024, 2048, 2),
+    (9659, 2048, 2), (5796, 2048, 4), (1, 1, 2), (3, 5, 4)])
+def test_rows_take_any_m(m, n, itemsize):
+    """Rows 2 and 3 keep nothing of A in shared memory: every m and n has a
+    tiling (up to config 4's m = 32768, n = 65536, past the stripe's m
+    limit), its grid fits CUDA's, and its scratch is a few per cent of A's
+    bytes at most."""
+    a_blocks, at_blocks = _row_blocks(m, n, itemsize)
+    assert 1 <= a_blocks < 2 ** 31 and 1 <= at_blocks < 2 ** 31
+    a_bytes = m * n * itemsize
+    scratch = 8 * (tfk.a_partials(n, itemsize) * m
+                   + tfk.at_partials(m, itemsize) * n)
+    assert scratch <= max(0.04 * a_bytes, 8 * (m + n))
+
+
+@pytest.mark.parametrize("m,n,itemsize,blocks", [
+    # rows of ROWS_A by spans; tiles by 32 granules of columns
+    (1024, 2048, 2, (32, 1 * 8)),
+    (1024, 2048, 4, (32, 1 * 16)),
+    (32768, 65536, 2, (1024 * 16, 16 * 256)),
+    (8192, 16384, 4, (256 * 4, 8 * 128)),
+])
+def test_row_grids_fill_the_card(m, n, itemsize, blocks):
+    """An instance's blocks; at B = 256 on the main width and at B = 1 on
+    the large LPs' shapes every grid is at least 7 blocks an SM of 132."""
+    assert _row_blocks(m, n, itemsize) == blocks
+    B = 256 if m == 1024 else 1
+    assert min(blocks) * B >= 7 * 132

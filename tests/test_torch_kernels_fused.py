@@ -111,7 +111,42 @@ def test_beta_sum_is_rounded_before_the_alpha_scale():
 
 
 def test_stripe_cols_gate():
+    """Row 1's stripe caps m (``ata_apply`` refuses m = 65536); rows 2 and 3
+    stream rows and have a tiling for it."""
     assert tfk.stripe_cols(1024, 2) == 32
     assert tfk.stripe_cols(1024, 4) == 16
     assert tfk.stripe_cols(4096, 2) in (8, 16)
     assert tfk.stripe_cols(1 << 16, 4) is None
+    assert tfk.at_partials(1 << 16, 4) == (1 << 16) // tfk.at_tile(4)
+    assert tfk.a_span(2048, 4) == 2048 and tfk.a_partials(2048, 4) == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("square", [False, True], ids=["plain", "squared"])
+def test_float64_out_plain_versions_are_mv64(square, bf16):
+    """``out_dtype=torch.float64``: the plain versions are float64 products
+    of the stored values, what ``numerics.mv64`` computes, unrounded."""
+    from ipx_torch import numerics
+    B, m, n = 2, 64, 128
+    _, At, _, v, alpha, w, _ = _inputs(B, m, n, 5, bf16)
+    x = _t(alpha if square else w)
+    f64 = torch.float64
+    y = tfk.a_matvec(At, x, square=square, out_dtype=f64)
+    A2 = At.double().square() if square else At
+    assert y.dtype == f64 and torch.equal(y, numerics.mv64(A2, x))
+    t = tfk.at_matvec(At, _t(v), out_dtype=f64)
+    ref = numerics.mv64(At.mT, _t(v))
+    assert t.dtype == f64
+    assert (t - ref).abs().max() <= 1e-14 * ref.abs().max()
+    # rounded once, the float32 outputs are within the plain version's
+    # float32 summation error of them
+    y32 = tfk.a_matvec(At, x, square=square)
+    assert (y32.double() - y).abs().max() <= TOL * y.abs().max()
+
+
+def test_out_dtype_is_float32_or_float64():
+    A = torch.zeros(1, 4, 8)
+    with pytest.raises(TypeError):
+        tfk.a_matvec(A, torch.zeros(1, 8), out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tfk.at_matvec(A, torch.zeros(1, 4), out_dtype=torch.float16)

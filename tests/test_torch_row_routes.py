@@ -1,0 +1,163 @@
+"""Which products with A go through rows 2 and 3 (``kernels.fused.a_matvec``
+/ ``at_matvec``) and which stay library products, route by route.
+
+``schur.use_row_kernels`` decides: the sharded and augmented routes on a
+CUDA device with A stored float32 or bf16.  On the CPU every route keeps the
+library product it had, bit for bit (``numerics.mv``, ``mv64``,
+``mv_wide``).  Where the decision says so, each of the routes' product
+sites calls the row kernels' wrappers: checked here on the CPU with the
+decision forced and the wrappers recorded (their plain versions then run).
+No JAX, no GPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+import ipx_torch
+from ipx_torch import mesh as meshlib
+from ipx_torch import numerics
+from ipx_torch.ipm import mehrotra
+from ipx_torch.kernels import fused as fk
+from ipx_torch.linsys import augmented, schur
+from ipx_torch.options import LINSYS_CHOICES
+
+torch.set_num_threads(1)
+
+F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
+ROUTES_ON_ROWS = ("augmented", "augmented_schur", "sharded", "sharded_schur")
+
+
+def test_linsys_choices_are_the_routes_decided_here():
+    assert set(LINSYS_CHOICES) == {"dense", *ROUTES_ON_ROWS}
+
+
+@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
+@pytest.mark.parametrize("device", ["cpu", "cuda", torch.device("cuda", 1)],
+                         ids=["cpu", "cuda", "cuda1"])
+@pytest.mark.parametrize("dtype", [F32, BF16, F64], ids=["f32", "bf16", "f64"])
+def test_use_row_kernels(linsys, device, dtype):
+    on_card = torch.device(device).type == "cuda"
+    want = linsys in ROUTES_ON_ROWS and on_card and dtype != F64
+    assert schur.use_row_kernels(linsys, dtype, device) is want
+
+
+def _lp_arrays(B=2, m=24, n=40, seed=0, dtype=F32):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy((rng.standard_normal((B, m, n)) / np.sqrt(n))
+                         .astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((B, n)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, m)).astype(np.float32))
+    d2 = torch.from_numpy(np.exp(rng.standard_normal((B, n)))
+                          .astype(np.float32))
+    return A, w, v, d2
+
+
+@pytest.mark.parametrize("a_dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
+def test_cpu_products_stay_library_bit_for_bit(linsys, a_dtype):
+    """On the CPU each route's (A w, A^T v) is the library product it was
+    before rows 2 and 3 took the card's: one-chain float32 (``mv``) on the
+    dense route under ``matvec_backend="xla"`` and on ``"sharded"``,
+    float64 sums rounded once (``mv_wide``, ``mv64``) on the augmented
+    routes and ``"sharded_schur"``."""
+    A, w, v, _ = _lp_arrays(dtype=a_dtype)
+    opts = ipx_torch.SolverOptions(linsys=linsys)
+    with schur.use_mesh(meshlib.make_mesh()):
+        fwd, tr = mehrotra._matvecs(A, opts)
+        y, t = fwd(w), tr(v)
+    wide = linsys != "dense" and linsys != "sharded"
+    prod = numerics.mv_wide if wide else numerics.mv
+    assert torch.equal(y, prod(A, w)) and y.dtype == F32
+    assert torch.equal(t, prod(A.mT, v)) and t.dtype == F32
+    if linsys.startswith("augmented") or linsys == "sharded_schur":
+        with schur.use_mesh(meshlib.make_mesh()):
+            fwd, tr = augmented._products(A, opts)
+            assert torch.equal(fwd(w), numerics.mv_wide(A, w))
+            assert torch.equal(tr(v), numerics.mv_wide(A.mT, v))
+
+
+def test_cpu_sharded_float64_products_and_diagonal_stay_library():
+    """``schur.matvecs(wide=True)`` on float64 vectors (the re-check of
+    ``api.solve_large``) and the Jacobi diagonal keep their library forms
+    on the CPU."""
+    A, w, v, d2 = _lp_arrays(dtype=BF16)
+    with schur.use_mesh(meshlib.make_mesh()):
+        fwd, tr = schur.matvecs(A, wide=True)
+        assert torch.equal(fwd(w.double()), numerics.mv64(A, w.double()))
+        assert torch.equal(tr(v.double()), numerics.mv64(A.mT, v.double()))
+    Af = A.float()
+    ref = torch.matmul(Af * Af, d2.unsqueeze(-1)).squeeze(-1)
+    assert torch.equal(schur._diag_scan(A, d2), ref)
+
+
+@pytest.fixture
+def forced_rows(monkeypatch):
+    """The decision forced to the card's answer on the CPU, and every call
+    of the row kernels' wrappers recorded as (name, square, out_dtype)."""
+    calls = []
+    a_mv, at_mv = fk.a_matvec, fk.at_matvec
+
+    def a_rec(A, w, square=False, out_dtype=F32):
+        calls.append(("a_matvec", square, out_dtype))
+        return a_mv(A, w, square, out_dtype)
+
+    def at_rec(A, v, out_dtype=F32):
+        calls.append(("at_matvec", False, out_dtype))
+        return at_mv(A, v, out_dtype)
+
+    monkeypatch.setattr(schur, "use_row_kernels",
+                        lambda linsys, dtype, device: linsys != "dense")
+    monkeypatch.setattr(fk, "a_matvec", a_rec)
+    monkeypatch.setattr(fk, "at_matvec", at_rec)
+    return calls
+
+
+@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
+def test_card_routes_call_rows_2_and_3(forced_rows, linsys):
+    """Where the decision says so, the routes' products go to the row
+    kernels: rounded to float32 on the augmented routes and ``"sharded"``,
+    float64 out through the all-reduce on ``"sharded_schur"``; the dense
+    route under ``matvec_backend="xla"`` calls neither."""
+    A, w, v, _ = _lp_arrays(dtype=BF16)
+    opts = ipx_torch.SolverOptions(linsys=linsys)
+    with schur.use_mesh(meshlib.make_mesh()):
+        fwd, tr = mehrotra._matvecs(A, opts)
+        y, t = fwd(w), tr(v)
+    assert y.dtype == t.dtype == F32
+    if linsys == "dense":
+        assert forced_rows == []
+        return
+    out = F64 if linsys == "sharded_schur" else F32
+    assert forced_rows == [("a_matvec", False, out), ("at_matvec", False, out)]
+    # on the CPU the wrappers run their plain versions: float32 products,
+    # float64 ones for out_dtype=float64
+    Af = A.float()
+    ref_y = Af.double() @ w.double().unsqueeze(-1)
+    assert (y.double() - ref_y.squeeze(-1)).abs().max() <= 1e-6
+    assert t.shape == (A.shape[0], A.shape[2])
+
+
+def test_card_augmented_products_call_rows_2_and_3(forced_rows):
+    A, w, v, _ = _lp_arrays(dtype=BF16)
+    for linsys in ("augmented", "augmented_schur"):
+        fwd, tr = augmented._products(
+            A, ipx_torch.SolverOptions(linsys=linsys))
+        fwd(w)
+        tr(v)
+    assert forced_rows == [("a_matvec", False, F32), ("at_matvec", False, F32)] * 2
+
+
+def test_card_sharded_diagonal_and_recheck_call_rows_2_and_3(forced_rows):
+    """The Jacobi diagonal is row 2's squared stream; the float64 re-check's
+    vectors (float64 copies of a float32 solve's iterates) go to rows 2 and
+    3 as float32, float64 out."""
+    A, w, v, d2 = _lp_arrays(dtype=BF16)
+    schur._diag_scan(A, d2)
+    assert forced_rows == [("a_matvec", True, F32)]
+    forced_rows.clear()
+    with schur.use_mesh(meshlib.make_mesh()):
+        fwd, tr = schur.matvecs(A, wide=True)
+        y, t = fwd(w.double()), tr(v.double())
+    assert forced_rows == [("a_matvec", False, F64), ("at_matvec", False, F64)]
+    assert y.dtype == t.dtype == F64
+    assert torch.equal(y, numerics.mv64(A, w))
