@@ -75,30 +75,36 @@ def _states_to_solutions(lp: LP, st: IPMState) -> list:
     STALLED / failed exits from late f32 degradation), and its quality
     metrics are recomputed in f64 on the host.  Each field crosses to the
     host ONCE for the whole batch; A crosses in its stored dtype and is
-    widened lane by lane, so the host never holds the batch's A in f64."""
-    X, Y, S = _host64(st.best_x), _host64(st.best_y), _host64(st.best_s)
-    C, Bv = _host64(lp.c), _host64(lp.b)
-    off = _host64(lp.obj_offset)
-    A_h = lp.A.detach().to("cpu")
-    status = st.status.to("cpu").numpy()
-    its = st.it.to("cpu").numpy()
-    trace = _host64(st.trace)
-    sols = []
-    for i in range(X.shape[0]):
-        x, y, s, c, b = X[i], Y[i], S[i], C[i], Bv[i]
-        A = A_h[i].to(torch.float64).numpy()
-        pobj = float(c @ x)
-        rp_rel = float(np.abs(A @ x - b).max(initial=0.0)
-                       / (1 + np.abs(b).max(initial=0.0)))
-        rd_rel = float(np.abs(A.T @ y + s - c).max(initial=0.0)
-                       / (1 + np.abs(c).max(initial=0.0)))
-        sols.append(Solution(
-            x=x, y=y, s=s,
-            objective=pobj + float(off[i]),
-            dual_objective=float(b @ y) + float(off[i]),
-            status=int(status[i]), iterations=int(its[i]),
-            rel_gap=float((x @ s) / (1 + abs(pobj))),
-            rp_rel=rp_rel, rd_rel=rd_rel, trace=trace[i]))
+    widened lane by lane, so the host never holds the batch's A in f64.
+    Spans: ``api.recheck``, around ``api.recheck.to_host`` (the copies) and
+    ``api.recheck.lanes`` (the loop over lanes, spanned once)."""
+    with obs.span("api.recheck"):
+        with obs.span("api.recheck.to_host"):
+            X, Y, S = (_host64(st.best_x), _host64(st.best_y),
+                       _host64(st.best_s))
+            C, Bv = _host64(lp.c), _host64(lp.b)
+            off = _host64(lp.obj_offset)
+            A_h = lp.A.detach().to("cpu")
+            status = st.status.to("cpu").numpy()
+            its = st.it.to("cpu").numpy()
+            trace = _host64(st.trace)
+        with obs.span("api.recheck.lanes"):
+            sols = []
+            for i in range(X.shape[0]):
+                x, y, s, c, b = X[i], Y[i], S[i], C[i], Bv[i]
+                A = A_h[i].to(torch.float64).numpy()
+                pobj = float(c @ x)
+                rp_rel = float(np.abs(A @ x - b).max(initial=0.0)
+                               / (1 + np.abs(b).max(initial=0.0)))
+                rd_rel = float(np.abs(A.T @ y + s - c).max(initial=0.0)
+                               / (1 + np.abs(c).max(initial=0.0)))
+                sols.append(Solution(
+                    x=x, y=y, s=s,
+                    objective=pobj + float(off[i]),
+                    dual_objective=float(b @ y) + float(off[i]),
+                    status=int(status[i]), iterations=int(its[i]),
+                    rel_gap=float((x @ s) / (1 + abs(pobj))),
+                    rp_rel=rp_rel, rd_rel=rd_rel, trace=trace[i]))
     return sols
 
 
@@ -157,17 +163,20 @@ def _ladder(lp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
     out = st
     spent = st.it.clone()
     todo = torch.arange(st.it.shape[0], device=st.it.device)
-    for rung, warm in ((aug, True), (aug, False), (asch, True)):
+    for name, rung, warm in (("aug_warm", aug, True), ("aug_cold", aug, False),
+                             ("schur_warm", asch, True)):
         if todo.numel() == 0:
             break
-        sub_lp = _lanes(lp, todo)
-        state0 = _warm(sub_lp, _lanes(st, todo), rung) if warm else None
-        res = _run_batch(sub_lp, rung, state0)
-        spent[todo] += res.it
-        res = dataclasses.replace(res, it=spent[todo])
-        fixed = res.status == int(Status.OPTIMAL)
-        out = _put(out, todo[fixed], _lanes(res, fixed))
-        todo = todo[~fixed]
+        with obs.span("api.rung." + name):
+            sub_lp = _lanes(lp, todo)
+            state0 = _warm(sub_lp, _lanes(st, todo), rung) if warm else None
+            res = _run_batch(sub_lp, rung, state0)
+            spent[todo] += res.it
+            res = dataclasses.replace(res, it=spent[todo])
+            fixed = res.status == int(Status.OPTIMAL)
+            out = _put(out, todo[fixed], _lanes(res, fixed))
+            todo = todo[~fixed]
+    obs.count("api.rescue.lanes_fixed", st.it.shape[0] - todo.numel())
     return out
 
 
@@ -180,22 +189,28 @@ def _rescue_batch(blp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
     a lane it ends OPTIMAL reports the iterations of stage 1 and of this
     rung.  The lanes it leaves go through :func:`_ladder` from their
     stage-1 states, so their count leaves this rung out, as ``ipx``'s
-    does."""
-    bad = [i for i, code in enumerate(st.status.tolist()) if code in _RESCUE]
-    if not bad:
-        return st
-    idx = torch.tensor(bad, device=st.it.device)
-    sub_lp, sub_st = _lanes(blp, idx), _lanes(st, idx)
-    asch = opts.replace(linsys="augmented_schur", refactor_period=1)
-    res = _run_batch(sub_lp, asch, _warm(sub_lp, sub_st, asch))
-    res = dataclasses.replace(res, it=res.it + sub_st.it)
-    fixed = res.status == int(Status.OPTIMAL)
-    out = _put(st, idx[fixed], _lanes(res, fixed))
-    left = idx[~fixed]
-    if left.numel():
-        out = _put(out, left, _ladder(_lanes(blp, left), _lanes(st, left),
-                                      opts))
-    return out
+    does.  Spans ``api.rescue`` and ``api.rung.schur_batch``; counters
+    ``api.rescue.lanes_in`` and ``api.rescue.lanes_fixed``."""
+    with obs.span("api.rescue"):
+        bad = [i for i, code in enumerate(st.status.tolist())
+               if code in _RESCUE]
+        obs.count("api.rescue.lanes_in", len(bad))
+        if not bad:
+            return st
+        idx = torch.tensor(bad, device=st.it.device)
+        with obs.span("api.rung.schur_batch"):
+            sub_lp, sub_st = _lanes(blp, idx), _lanes(st, idx)
+            asch = opts.replace(linsys="augmented_schur", refactor_period=1)
+            res = _run_batch(sub_lp, asch, _warm(sub_lp, sub_st, asch))
+            res = dataclasses.replace(res, it=res.it + sub_st.it)
+            fixed = res.status == int(Status.OPTIMAL)
+            out = _put(st, idx[fixed], _lanes(res, fixed))
+            left = idx[~fixed]
+        obs.count("api.rescue.lanes_fixed", len(bad) - left.numel())
+        if left.numel():
+            out = _put(out, left, _ladder(_lanes(blp, left),
+                                          _lanes(st, left), opts))
+        return out
 
 
 def _maybe_augmented_fallback(lp: LP, st: IPMState,
@@ -207,16 +222,19 @@ def _maybe_augmented_fallback(lp: LP, st: IPMState,
     caller's iteration budget and stays as it is."""
     if not opts.augmented_fallback or opts.linsys != "dense":
         return st
-    near_miss = ((st.status == int(Status.MAX_ITER))
-                 & (st.rel_gap <= opts.stall_gap_guard * opts.tol)
-                 if opts.stall_gap_guard > 0
-                 else torch.zeros_like(st.status, dtype=torch.bool))
-    rescue = near_miss | torch.isin(st.status, torch.tensor(
-        _RESCUE, dtype=st.status.dtype, device=st.status.device))
-    idx = torch.nonzero(rescue).flatten()
-    if not idx.numel():
-        return st
-    return _put(st, idx, _ladder(_lanes(lp, idx), _lanes(st, idx), opts))
+    with obs.span("api.rescue"):
+        near_miss = ((st.status == int(Status.MAX_ITER))
+                     & (st.rel_gap <= opts.stall_gap_guard * opts.tol)
+                     if opts.stall_gap_guard > 0
+                     else torch.zeros_like(st.status, dtype=torch.bool))
+        rescue = near_miss | torch.isin(st.status, torch.tensor(
+            _RESCUE, dtype=st.status.dtype, device=st.status.device))
+        idx = torch.nonzero(rescue).flatten()
+        obs.count("api.rescue.lanes_in", idx.numel())
+        if not idx.numel():
+            return st
+        return _put(st, idx, _ladder(_lanes(lp, idx), _lanes(st, idx),
+                                     opts))
 
 
 def _prepare(lps, opts: SolverOptions, device, p: int = 1) -> LP:
@@ -225,28 +243,30 @@ def _prepare(lps, opts: SolverOptions, device, p: int = 1) -> LP:
     transient copy twice its size); the rest takes the compute dtype.  Each
     A holds n / p of its LP's n columns: p > 1 for a row-sharded share, and
     a column block given as a whole A is refused (a dense route would solve
-    another LP)."""
-    check_ported(opts)
-    if isinstance(lps, LP):
-        blp = lps
-        if blp.A.ndim != 3:
-            raise ValueError("batched LP must have A of rank 3 (B, m, n)")
-    else:
-        blp = batched.stack_lps(lps)
-    n = blp.c.shape[-1]
-    if blp.A.shape[-1] * p != n:
-        raise ValueError(
-            f"A holds {blp.A.shape[-1]} columns of an LP with n={n}: "
-            + ("a column block (a row-sharded share) is solved with its "
-               "mesh, solve_batch(share, mesh=mesh)" if p == 1 else
-               f"a share of a mesh with {p} row shards holds n/{p}"))
-    blp = blp.to(device)
-    dtype = dtype_of(opts.dtype)
-    keep_a = blp.A.dtype == torch.bfloat16 and opts.a_storage == "bfloat16"
-    return LP(c=blp.c.to(dtype), A=blp.A if keep_a else blp.A.to(dtype),
-              b=blp.b.to(dtype), obj_offset=blp.obj_offset.to(dtype))
+    another LP).  Span ``api.prepare``."""
+    with obs.span("api.prepare"):
+        check_ported(opts)
+        if isinstance(lps, LP):
+            blp = lps
+            if blp.A.ndim != 3:
+                raise ValueError("batched LP must have A of rank 3 (B, m, n)")
+        else:
+            blp = batched.stack_lps(lps)
+        n = blp.c.shape[-1]
+        if blp.A.shape[-1] * p != n:
+            raise ValueError(
+                f"A holds {blp.A.shape[-1]} columns of an LP with n={n}: "
+                + ("a column block (a row-sharded share) is solved with its "
+                   "mesh, solve_batch(share, mesh=mesh)" if p == 1 else
+                   f"a share of a mesh with {p} row shards holds n/{p}"))
+        blp = blp.to(device)
+        dtype = dtype_of(opts.dtype)
+        keep_a = blp.A.dtype == torch.bfloat16 and opts.a_storage == "bfloat16"
+        return LP(c=blp.c.to(dtype), A=blp.A if keep_a else blp.A.to(dtype),
+                  b=blp.b.to(dtype), obj_offset=blp.obj_offset.to(dtype))
 
 
+@obs.entry
 def solve_batch(lps, options: Optional[SolverOptions] = None,
                 device="cuda", *, mesh=None) -> list:
     """Solve a batch of same-shape LPs in one batched run on ``device``.
@@ -310,6 +330,7 @@ def _solve_row_sharded(lps, opts: SolverOptions, device, mesh,
         return _sharded_solutions(blp, st)
 
 
+@obs.entry
 def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
           resume_from: Optional[str] = None,
           checkpoint_to: Optional[str] = None,
@@ -483,6 +504,7 @@ def _solve_presolved(c, A, b, opts: SolverOptions, device) -> Solution:
         rp_rel=rp_rel, rd_rel=rd_rel, trace=red.trace)
 
 
+@obs.entry
 def solve_general(glp, options: Optional[SolverOptions] = None,
                   device="cuda") -> Solution:
     """Solve a :class:`GeneralLP` (inequalities + bounds) end to end.
@@ -547,12 +569,14 @@ def solve_general(glp, options: Optional[SolverOptions] = None,
         trace=red.trace)
 
 
+@obs.entry
 def solve_mps(path: str, options: Optional[SolverOptions] = None,
               device="cuda") -> Solution:
     """Read an MPS file and solve it on ``device``."""
     return solve_general(read_mps(path), options, device)
 
 
+@obs.entry
 def solve_many(problems, options: Optional[SolverOptions] = None,
                m_multiple: int = 32, n_multiple: int = 64,
                device="cuda") -> list:
@@ -607,6 +631,7 @@ def solve_many(problems, options: Optional[SolverOptions] = None,
     return out
 
 
+@obs.entry
 def solve_large(c, A=None, b=None, mesh=None,
                 options: Optional[SolverOptions] = None,
                 exec_chunk_iters: int = 0, device="cuda") -> Solution:

@@ -16,6 +16,7 @@ import contextvars
 
 import torch
 
+from ipx_torch import obs
 from ipx_torch.ipm import mehrotra
 from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.linsys import normal_eq
@@ -114,26 +115,34 @@ def run_batch(lp: LP, opts: SolverOptions,
 
     Under ``obs.debug_mode`` or ``obs.checked_solve`` each step's values
     are tested for non-finite entries (:func:`_step`).
+
+    Spans (``obs.span``, with their device time): ``ipm.start``, the
+    starting point and ``state0``'s residuals; ``ipm.step``, each step (a
+    block's factor with its first step).
     """
     check_ported(opts)
     lp = lp.with_a_storage(opts)
-    start, fac_aat = batch_starting_state(lp, opts)
-    if state0 is None:
-        st = start
-    else:
-        st = mehrotra.refresh_residuals(lp, state0, opts)
+    with obs.span("ipm.start", device=True):
+        start, fac_aat = batch_starting_state(lp, opts)
+        if state0 is None:
+            st = start
+        else:
+            st = mehrotra.refresh_residuals(lp, state0, opts)
     stale = opts.replace(refine_steps=opts.stale_solve_cg)
     running = int(Status.RUNNING)
     while bool(((st.status == running) & (st.it < opts.max_iter)).any()):
         if opts.refactor_period == 1:
-            st = _step(lp, st, opts, fac_aat)
+            with obs.span("ipm.step", device=True):
+                st = _step(lp, st, opts, fac_aat)
             continue
         boost0 = st.reg_boost
-        fac = normal_eq.factor(lp.A, st.x / st.s, opts,
-                               reg_scale=st.reg_boost)
-        st = _step(lp, st, opts, fac_aat, fac)
+        with obs.span("ipm.step", device=True):
+            fac = normal_eq.factor(lp.A, st.x / st.s, opts,
+                                   reg_scale=st.reg_boost)
+            st = _step(lp, st, opts, fac_aat, fac)
         for _ in range(opts.refactor_period - 1):
-            st = _step(lp, st, stale, fac_aat, fac, boost0)
+            with obs.span("ipm.step", device=True):
+                st = _step(lp, st, stale, fac_aat, fac, boost0)
     return mehrotra.finalize_status(st, opts)
 
 

@@ -8,8 +8,12 @@ The solve loop carries a bounded trace buffer in ``IPMState`` (rendered by
     restartable, since the iterate IS the algorithm state.  The file layout
     is ``ipx``'s (``ipx/obs.py``), so a snapshot written by either package
     resumes in the other.
-  * ``timed_section`` / ``trace_to``: wall timing and ``torch.profiler``
-    capture around a region.
+  * ``span`` / ``count`` / ``tracing``: the program's own spans and
+    counters (entry calls, the host re-check, the rescue rungs, each
+    Mehrotra step's device time), recorded in memory under ``tracing()``
+    and, while a ``torch.profiler`` records, ``record_function``s in its
+    trace; off, a span is a shared null context.
+  * ``trace_to``: ``torch.profiler`` capture around a region.
   * ``solve_with_snapshots``: a solve checkpointed every k iterations.
   * ``debug_mode`` / ``checked_solve``: every step's named values tested
     for non-finite entries, raised or recorded.
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -98,34 +103,196 @@ def resume_state(state: IPMState, max_iter: int) -> IPMState:
 
 
 # ---------------------------------------------------------------------------
-# timing / profiling
+# spans and counters
 # ---------------------------------------------------------------------------
 
+CALL = "api.call"           # the root span of each entry call
+_NULL = contextlib.nullcontext()
+_TRACE: Optional["Trace"] = None        # the open ``tracing()`` record
+_ENTRY_DEPTH = 0            # entry calls open, while spans are recorded
+
+
 @dataclass
-class SectionTiming:
+class SpanRecord:
+    """One closed span: ``start_ns`` and ``end_ns`` on ``time.time_ns()``,
+    the clock of ``torch.profiler``'s events, taken outside the span's
+    ``record_function`` so that its profiler event lies inside them;
+    ``parent`` the index of the enclosing span in ``Trace.spans`` (-1 at a
+    root); ``call`` the index of the ``api.call`` it belongs to (-1
+    outside any entry call); ``cpu_s`` the process's CPU seconds (all
+    threads) it spanned; ``device_s`` the seconds between its pair of CUDA
+    events, read when the record closes (None without)."""
     name: str
-    seconds: float = 0.0
+    start_ns: int
+    end_ns: int = 0
+    parent: int = -1
+    call: int = -1
+    cpu_s: float = 0.0
+    device_s: Optional[float] = None
+    child_ns: int = 0
+    events: Optional[tuple] = None
+
+
+class Trace:
+    """The in-memory record of one :func:`tracing` context: its spans in
+    the order they opened and its counters.  One thread: the spans of the
+    solve path nest."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counters: dict = {}
+        self.calls = 0
+        self._stack: list = []
+
+    def _close(self):
+        """Reads every span's CUDA events, once."""
+        pending = [r for r in self.spans if r.events is not None]
+        if pending:
+            torch.cuda.synchronize()
+            for r in pending:
+                e0, e1 = r.events
+                r.device_s = e0.elapsed_time(e1) / 1e3
+                r.events = None
+
+    def summary(self) -> dict:
+        """By span name: ``calls``, ``seconds``, ``self_seconds`` (less the
+        part its child spans cover), ``cpu_seconds`` and, where recorded,
+        ``device_seconds``; the counters beside them, and ``calls``, the
+        entry calls (``api.call`` spans) recorded."""
+        spans: dict = {}
+        for r in self.spans:
+            if not r.end_ns:
+                continue        # still open
+            s = spans.setdefault(r.name, {"calls": 0, "seconds": 0.0,
+                                          "self_seconds": 0.0,
+                                          "cpu_seconds": 0.0})
+            s["calls"] += 1
+            s["seconds"] += (r.end_ns - r.start_ns) / 1e9
+            s["self_seconds"] += (r.end_ns - r.start_ns - r.child_ns) / 1e9
+            s["cpu_seconds"] += r.cpu_s
+            if r.device_s is not None:
+                s["device_seconds"] = s.get("device_seconds", 0.0) + r.device_s
+        return {"calls": self.calls, "spans": spans,
+                "counters": dict(self.counters)}
+
+
+class _Span:
+    """A span while :func:`tracing` records (see :func:`span`)."""
+
+    __slots__ = ("trace", "rec", "rf", "cpu0")
+
+    def __init__(self, trace: Trace, name: str, device: bool):
+        self.trace = trace
+        stack = trace._stack
+        parent = stack[-1] if stack else -1
+        call = trace.spans[parent].call if stack else -1
+        if name == CALL and call < 0:
+            call = trace.calls
+            trace.calls += 1
+        self.rec = SpanRecord(name, 0, parent=parent, call=call)
+        if device and torch.cuda.is_available():
+            self.rec.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+        self.rf = None
+
+    def __enter__(self):
+        rec = self.rec
+        rec.start_ns = time.time_ns()
+        self.cpu0 = time.process_time()
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(rec.name)
+            self.rf.__enter__()
+        if rec.events is not None:
+            rec.events[0].record()
+        self.trace._stack.append(len(self.trace.spans))
+        self.trace.spans.append(rec)
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec.events is not None:
+            rec.events[1].record()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        rec.cpu_s = time.process_time() - self.cpu0
+        rec.end_ns = time.time_ns()
+        self.trace._stack.pop()
+        if rec.parent >= 0:
+            self.trace.spans[rec.parent].child_ns += rec.end_ns - rec.start_ns
+        return False
+
+
+def span(name: str, device: bool = False):
+    """A context manager naming a region of the program.
+
+    Under :func:`tracing` the span is recorded (:class:`SpanRecord`); with
+    ``device=True`` on a card, also a pair of CUDA events around it, read
+    only when the record closes.  While a ``torch.profiler`` records, it
+    is a ``record_function`` of the same name too, so a trace
+    (:func:`trace_to`) shows the program's spans above the kernels and
+    copies.  Otherwise it is a shared null context: no event, no
+    ``record_function``, no allocation, no host read."""
+    t = _TRACE
+    if t is not None:
+        return _Span(t, name, device)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+def count(name: str, k) -> None:
+    """Adds ``k`` to the counter ``name`` of the open :func:`tracing`
+    record; nothing without one.  ``k`` is a number the host already
+    holds: a counter never reads the device."""
+    t = _TRACE
+    if t is not None:
+        t.counters[name] = t.counters.get(name, 0) + k
+
+
+def entry(fn):
+    """Marks a public entry of the port: a call made outside every other
+    entry call opens the root span ``api.call`` (:func:`span`)."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        global _ENTRY_DEPTH
+        if _ENTRY_DEPTH or (_TRACE is None
+                            and not torch.autograd._profiler_enabled()):
+            return fn(*args, **kwargs)
+        _ENTRY_DEPTH += 1
+        try:
+            with span(CALL):
+                return fn(*args, **kwargs)
+        finally:
+            _ENTRY_DEPTH -= 1
+    return call
 
 
 @contextlib.contextmanager
-def timed_section(name: str, sink: Optional[list] = None):
-    """Wall-clock a region (device work must be synchronized by the caller:
-    timing asynchronous launches measures the enqueue)."""
-    t0 = time.perf_counter()
-    rec = SectionTiming(name)
+def tracing():
+    """Records the program's spans and counters while open; yields the
+    :class:`Trace`, whose CUDA events are read when the context closes::
+
+        with obs.tracing() as t:
+            ipx_torch.solve_batch(lps, options)
+        t.summary()["spans"]["api.recheck"]["seconds"]
+    """
+    global _TRACE
+    if _TRACE is not None:
+        raise RuntimeError("obs.tracing() is already open")
+    t = _TRACE = Trace()
     try:
-        yield rec
+        yield t
     finally:
-        rec.seconds = time.perf_counter() - t0
-        if sink is not None:
-            sink.append(rec)
+        _TRACE = None
+        t._close()
 
 
 @contextlib.contextmanager
 def trace_to(logdir: str):
     """``torch.profiler`` capture around a region, the host and, when there
     is one, the card; written to ``logdir`` as a Chrome trace (view in
-    TensorBoard or Perfetto)."""
+    TensorBoard or Perfetto), the program's spans (:func:`span`) above the
+    kernels and copies they launch."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

@@ -1,4 +1,4 @@
-"""The port's checkpoint/resume, timing and profiling hooks and CLI on the
+"""The port's checkpoint/resume, spans and profiling hooks and CLI on the
 CPU, with snapshots crossing between ``ipx`` and ``ipx_torch``."""
 import argparse
 import json
@@ -135,13 +135,22 @@ def test_solve_with_snapshots(tmp_path):
 
 
 def test_timed_section_and_trace_to(tmp_path):
-    sink = []
-    with obs.timed_section("work", sink):
-        sum(range(1000))
-    assert sink and sink[0].name == "work" and sink[0].seconds >= 0
+    """``obs.span`` and ``obs.count`` under ``obs.tracing``, and a span in
+    ``obs.trace_to``'s Chrome trace (the name is the earlier contract's:
+    ``obs.span`` took the place of ``timed_section``)."""
+    with obs.tracing() as t:
+        with obs.span("work"):
+            sum(range(1000))
+        obs.count("items", 3)
+    got = t.summary()
+    assert got["spans"]["work"]["calls"] == 1
+    assert got["spans"]["work"]["seconds"] >= 0
+    assert got["counters"] == {"items": 3}
     with obs.trace_to(str(tmp_path)):
-        torch.ones(8) @ torch.ones(8)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
+        with obs.span("work.traced"):
+            torch.ones(8) @ torch.ones(8)
+    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert files and '"work.traced"' in (tmp_path / files[0]).read_text()
 
 
 def _cli(*args):

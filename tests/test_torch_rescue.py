@@ -335,6 +335,39 @@ def test_ladder_off_route_or_option_rescues_nothing(monkeypatch):
             [SCRIPT[c]["stage1"][0] for c in CASES]
 
 
+# the script's rungs -> the port's rung spans
+RUNG_SPANS = {"in_batch": "api.rung.schur_batch",
+              "lu_warm": "api.rung.aug_warm",
+              "lu_cold": "api.rung.aug_cold",
+              "schur": "api.rung.schur_warm"}
+
+
+@pytest.mark.parametrize("entry", ["solve_batch", "solve"])
+def test_rescue_counters_match_ladder(entry, monkeypatch):
+    """``api.rescue.lanes_in`` counts the lanes the ladder took,
+    ``api.rescue.lanes_fixed`` those it ended OPTIMAL; a rung span for
+    each batch a rung ran (one a lane under ``solve``), inside
+    ``api.rescue``."""
+    from ipx_torch import obs
+    with monkeypatch.context() as mp, obs.tracing() as t:
+        rungs, sols = _run_scripted(entry, ipx_torch, mp)
+    took = [lane for lane, r in rungs.items() if len(r) > 1]
+    fixed = [lane for lane in took if sols[lane].optimal]
+    got = t.summary()
+    assert got["calls"] == (1 if entry == "solve_batch" else len(CASES))
+    assert got["counters"] == {"api.rescue.lanes_in": len(took),
+                               "api.rescue.lanes_fixed": len(fixed)}
+    assert (len(took), len(fixed)) == ((6, 5) if entry == "solve_batch"
+                                       else (7, 6))
+    for rung, name in RUNG_SPANS.items():
+        lanes = sum(rung in r for r in rungs.values())
+        want = min(lanes, 1) if entry == "solve_batch" else lanes
+        assert got["spans"].get(name, {}).get("calls", 0) == want, name
+    for r in t.spans:
+        if r.name.startswith("api.rung."):
+            assert t.spans[r.parent].name == "api.rescue"
+
+
 # --------------------------------------------------------------------------
 # The degenerate batches of tests/test_degenerate.py, f32, default options
 # --------------------------------------------------------------------------
