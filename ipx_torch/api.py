@@ -12,7 +12,7 @@ import torch
 from ipx_torch import obs
 from ipx_torch.ipm import batched, mehrotra
 from ipx_torch.ipm.state import IPMState, select_lanes
-from ipx_torch.numerics import dtype_of
+from ipx_torch.numerics import dtype_of, inf_norm
 from ipx_torch.options import DEFAULT_OPTIONS, SolverOptions, check_ported
 from ipx_torch.problem.batching import bucket_lps
 from ipx_torch.problem.lp import LP, GeneralLP, make_lp, to_standard_form
@@ -69,22 +69,34 @@ def _host64(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").to(torch.float64).numpy()
 
 
-def _states_to_solutions(lp: LP, st: IPMState) -> list:
-    """One Solution per lane.  The best-merit iterate visited is reported
-    (equals the final iterate on a clean OPTIMAL exit; shields MAX_ITER /
-    STALLED / failed exits from late f32 degradation), and its quality
-    metrics are recomputed in f64 on the host.  Each field crosses to the
-    host ONCE for the whole batch; A crosses in its stored dtype and is
-    widened lane by lane, so the host never holds the batch's A in f64.
-    Spans: ``api.recheck``, around ``api.recheck.to_host`` (the copies) and
-    ``api.recheck.lanes`` (the loop over lanes, spanned once)."""
+def _solutions(lp: LP, st: IPMState, fwd, tr) -> list:
+    """One Solution per lane, for every route.  The best-merit iterate
+    visited is reported (equals the final iterate on a clean OPTIMAL exit;
+    shields MAX_ITER / STALLED / failed exits from late f32 degradation),
+    and its quality metrics are recomputed in f64.  The residuals are
+    measured where A lives, for the whole batch at once: ``fwd`` (w -> A w)
+    and ``tr`` (v -> A^T v) take and return float64, and their
+    infinity-norms are reduced there; the dot products run on the host per
+    lane.  Only the iterates, c, b and per-lane numbers cross to the host,
+    once for the batch; A never does.  Spans: ``api.recheck``, around
+    ``api.recheck.device`` (the products and norms, with CUDA events),
+    ``api.recheck.to_host`` (the copies) and ``api.recheck.lanes`` (the
+    Solutions built, spanned once); counter ``api.recheck.lanes_checked``."""
+    f64 = torch.float64
     with obs.span("api.recheck"):
+        obs.count("api.recheck.lanes_checked", st.it.shape[0])
+        with obs.span("api.recheck.device", device=True):
+            x, y, s = (t.to(f64) for t in (st.best_x, st.best_y, st.best_s))
+            c, b = lp.c.to(f64), lp.b.to(f64)
+            norms = torch.stack([inf_norm(fwd(x) - b),
+                                 inf_norm(tr(y) + s - c),
+                                 inf_norm(b), inf_norm(c)])
         with obs.span("api.recheck.to_host"):
+            rp, rd, bmax, cmax = norms.to("cpu").numpy()
             X, Y, S = (_host64(st.best_x), _host64(st.best_y),
                        _host64(st.best_s))
             C, Bv = _host64(lp.c), _host64(lp.b)
             off = _host64(lp.obj_offset)
-            A_h = lp.A.detach().to("cpu")
             status = st.status.to("cpu").numpy()
             its = st.it.to("cpu").numpy()
             trace = _host64(st.trace)
@@ -92,24 +104,40 @@ def _states_to_solutions(lp: LP, st: IPMState) -> list:
             sols = []
             for i in range(X.shape[0]):
                 x, y, s, c, b = X[i], Y[i], S[i], C[i], Bv[i]
-                A = A_h[i].to(torch.float64).numpy()
                 pobj = float(c @ x)
-                rp_rel = float(np.abs(A @ x - b).max(initial=0.0)
-                               / (1 + np.abs(b).max(initial=0.0)))
-                rd_rel = float(np.abs(A.T @ y + s - c).max(initial=0.0)
-                               / (1 + np.abs(c).max(initial=0.0)))
                 sols.append(Solution(
                     x=x, y=y, s=s,
                     objective=pobj + float(off[i]),
                     dual_objective=float(b @ y) + float(off[i]),
                     status=int(status[i]), iterations=int(its[i]),
                     rel_gap=float((x @ s) / (1 + abs(pobj))),
-                    rp_rel=rp_rel, rd_rel=rd_rel, trace=trace[i]))
+                    rp_rel=float(rp[i] / (1 + bmax[i])),
+                    rd_rel=float(rd[i] / (1 + cmax[i])), trace=trace[i]))
     return sols
 
 
-# the statuses the ladder rescues in both entry points; ``solve`` adds a
-# near-miss MAX_ITER (see _maybe_augmented_fallback)
+def _states_to_solutions(lp: LP, st: IPMState) -> list:
+    """The Solutions of the routes without a mesh (:func:`_solutions`):
+    the products are ``schur._prod64``'s, rows 2 and 3 on the card for an
+    A stored f32 or bf16 (f64 sums, no copy of A), else ``numerics.mv64``
+    (an A stored f64 as it is; another A through an f64 copy made a block
+    of rows at a time, at most ``numerics.COPY_BYTES``)."""
+    from ipx_torch.linsys import schur
+    A = lp.A.contiguous()       # rows 2 and 3 read A as stored, row-major
+    return _solutions(lp, st, lambda w: schur._prod64(A, w, False),
+                      lambda v: schur._prod64(A, v, True))
+
+
+def _sharded_solutions(lp: LP, st: IPMState) -> list:
+    """The Solutions of the sharded routes (:func:`_solutions`), one a lane,
+    the same on every rank of a row group: the products are the ranks'
+    (``schur.matvecs(wide=True)``: f64 sums through the all-reduce)."""
+    from ipx_torch.linsys import schur
+    return _solutions(lp, st, *schur.matvecs(lp.A, wide=True))
+
+
+# the statuses the ladder rescues in both entry points, besides a near-miss
+# MAX_ITER (see _rescue)
 _RESCUE = (int(Status.STALLED), int(Status.NUMERICAL_FAILURE))
 
 
@@ -180,61 +208,54 @@ def _ladder(lp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
     return out
 
 
-def _rescue_batch(blp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
-    """``solve_batch``'s rescue of its STALLED and NUMERICAL_FAILURE lanes
-    (a near-miss MAX_ITER is not rescued here, as in ``ipx``).
+def _rescue(lp: LP, st: IPMState, opts: SolverOptions,
+            in_batch: bool) -> IPMState:
+    """The rescue of both entry points, on the dense route with
+    ``augmented_fallback`` only.  It takes the lanes that ended STALLED or
+    NUMERICAL_FAILURE, and a near-miss MAX_ITER: within ``stall_gap_guard
+    * tol`` of the gap tolerance, where the guard loosened the stall test.
+    A far MAX_ITER is the caller's iteration budget and stays as it is.
+    (``ipx``'s ``solve_batch`` leaves a near-miss as it is too.)
 
-    First in one batch: the failing lanes gathered into a sub-batch,
-    warm-started from their best iterates and run on ``augmented_schur``;
-    a lane it ends OPTIMAL reports the iterations of stage 1 and of this
-    rung.  The lanes it leaves go through :func:`_ladder` from their
-    stage-1 states, so their count leaves this rung out, as ``ipx``'s
-    does.  Spans ``api.rescue`` and ``api.rung.schur_batch``; counters
-    ``api.rescue.lanes_in`` and ``api.rescue.lanes_fixed``."""
-    with obs.span("api.rescue"):
-        bad = [i for i, code in enumerate(st.status.tolist())
-               if code in _RESCUE]
-        obs.count("api.rescue.lanes_in", len(bad))
-        if not bad:
-            return st
-        idx = torch.tensor(bad, device=st.it.device)
-        with obs.span("api.rung.schur_batch"):
-            sub_lp, sub_st = _lanes(blp, idx), _lanes(st, idx)
-            asch = opts.replace(linsys="augmented_schur", refactor_period=1)
-            res = _run_batch(sub_lp, asch, _warm(sub_lp, sub_st, asch))
-            res = dataclasses.replace(res, it=res.it + sub_st.it)
-            fixed = res.status == int(Status.OPTIMAL)
-            out = _put(st, idx[fixed], _lanes(res, fixed))
-            left = idx[~fixed]
-        obs.count("api.rescue.lanes_fixed", len(bad) - left.numel())
-        if left.numel():
-            out = _put(out, left, _ladder(_lanes(blp, left),
-                                          _lanes(st, left), opts))
-        return out
-
-
-def _maybe_augmented_fallback(lp: LP, st: IPMState,
-                              opts: SolverOptions) -> IPMState:
-    """``solve``'s rescue: the ladder on a lane that ended STALLED or
-    NUMERICAL_FAILURE, or MAX_ITER within ``stall_gap_guard * tol`` of the
-    gap tolerance (a near-miss; ``solve_batch`` does not rescue it, as in
-    ``ipx``).  Only the dense route rescues.  A far MAX_ITER is the
-    caller's iteration budget and stays as it is."""
+    ``solve`` sends them to :func:`_ladder`.  ``solve_batch``
+    (``in_batch``) first runs them in one batch: gathered into a
+    sub-batch, warm-started from their best iterates, on
+    ``augmented_schur``; a lane it ends OPTIMAL reports the iterations of
+    stage 1 and of this rung.  The lanes it leaves go through the ladder
+    from their stage-1 states, so their count leaves this rung out, as
+    ``ipx``'s does.  Spans ``api.rescue`` and ``api.rung.schur_batch``;
+    counters ``api.rescue.lanes_in``, ``api.rescue.near_miss_in`` and
+    ``api.rescue.lanes_fixed``."""
     if not opts.augmented_fallback or opts.linsys != "dense":
         return st
     with obs.span("api.rescue"):
-        near_miss = ((st.status == int(Status.MAX_ITER))
-                     & (st.rel_gap <= opts.stall_gap_guard * opts.tol)
-                     if opts.stall_gap_guard > 0
-                     else torch.zeros_like(st.status, dtype=torch.bool))
-        rescue = near_miss | torch.isin(st.status, torch.tensor(
+        near = st.status == int(Status.MAX_ITER)
+        near = (near & (st.rel_gap <= opts.stall_gap_guard * opts.tol)
+                if opts.stall_gap_guard > 0 else torch.zeros_like(near))
+        failed = torch.isin(st.status, torch.tensor(
             _RESCUE, dtype=st.status.dtype, device=st.status.device))
-        idx = torch.nonzero(rescue).flatten()
-        obs.count("api.rescue.lanes_in", idx.numel())
-        if not idx.numel():
+        take, near = torch.stack([near | failed, near]).tolist()
+        bad = [i for i, t in enumerate(take) if t]
+        obs.count("api.rescue.lanes_in", len(bad))
+        obs.count("api.rescue.near_miss_in", sum(near))
+        if not bad:
             return st
-        return _put(st, idx, _ladder(_lanes(lp, idx), _lanes(st, idx),
-                                     opts))
+        out, left = st, torch.tensor(bad, device=st.it.device)
+        if in_batch:
+            with obs.span("api.rung.schur_batch"):
+                sub_lp, sub_st = _lanes(lp, left), _lanes(st, left)
+                asch = opts.replace(linsys="augmented_schur",
+                                    refactor_period=1)
+                res = _run_batch(sub_lp, asch, _warm(sub_lp, sub_st, asch))
+                res = dataclasses.replace(res, it=res.it + sub_st.it)
+                fixed = res.status == int(Status.OPTIMAL)
+                out = _put(st, left[fixed], _lanes(res, fixed))
+                left = left[~fixed]
+            obs.count("api.rescue.lanes_fixed", len(bad) - left.numel())
+        if left.numel():
+            out = _put(out, left, _ladder(_lanes(lp, left),
+                                          _lanes(st, left), opts))
+        return out
 
 
 def _prepare(lps, opts: SolverOptions, device, p: int = 1) -> LP:
@@ -274,8 +295,9 @@ def solve_batch(lps, options: Optional[SolverOptions] = None,
     ``lps`` is a sequence of single-instance :class:`LP` or an already
     batched LP (A of rank 3).  Returns one :class:`Solution` per instance,
     in input order.  With ``augmented_fallback`` (the default) on the dense
-    route, lanes that end STALLED or NUMERICAL_FAILURE are rescued
-    (:func:`_rescue_batch`).
+    route, lanes that end STALLED or NUMERICAL_FAILURE, or MAX_ITER within
+    ``stall_gap_guard * tol`` of the gap tolerance, are rescued
+    (:func:`_rescue`).
 
     With a ``mesh`` whose "row" axis has p > 1 (config 5), ``lps`` is this
     rank's ``mesh.batch_lp_sharding`` share: its lanes, each A's column
@@ -297,9 +319,7 @@ def solve_batch(lps, options: Optional[SolverOptions] = None,
     blp = _prepare(lps, opts, device)
     # run_batch applies a_storage itself; the reported metrics are taken
     # against the instance as given, as in ``ipx``
-    st = _run_batch(blp, opts)
-    if opts.augmented_fallback and opts.linsys == "dense":
-        st = _rescue_batch(blp, st, opts)
+    st = _rescue(blp, _run_batch(blp, opts), opts, in_batch=True)
     return _states_to_solutions(blp, st)
 
 
@@ -375,7 +395,7 @@ def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
         st = _run_batch(blp, opts,
                         mehrotra.warm_start_state(blp, x, y, s, opts))
     else:
-        st = _maybe_augmented_fallback(blp, _run_batch(blp, opts), opts)
+        st = _rescue(blp, _run_batch(blp, opts), opts, in_batch=False)
     if checkpoint_to is not None:
         obs.save_state(checkpoint_to, st)
     return _states_to_solutions(blp, st)[0]
@@ -458,7 +478,7 @@ def _solve_reduced(pres, opts: SolverOptions, device) -> Solution:
     lp = make_lp(pres.c, pres.A, pres.b, dtype=dtype_of(opts.dtype),
                  device=device)
     blp = _prepare([lp], opts, device)
-    st = _maybe_augmented_fallback(blp, _run_batch(blp, opts), opts)
+    st = _rescue(blp, _run_batch(blp, opts), opts, in_batch=False)
     return _states_to_solutions(blp, st)[0]
 
 
@@ -759,35 +779,3 @@ def _run_stage(lp: LP, opts: SolverOptions, chunk: int,
         if int(st.status) not in (int(Status.RUNNING), int(Status.MAX_ITER)):
             break
     return st
-
-
-def _sharded_solutions(lp: LP, st: IPMState) -> list:
-    """The Solutions of the sharded routes, one a lane, the same on every
-    rank of a row group: the best iterate, its residuals measured in
-    float64 through the ranks' products (the host never holds A)."""
-    from ipx_torch.linsys import schur
-    f64 = torch.float64
-    x, y, s = (t.to(f64) for t in (st.best_x, st.best_y, st.best_s))
-    c, b = lp.c.to(f64), lp.b.to(f64)
-    fwd, tr = schur.matvecs(lp.A, wide=True)
-    rp = _host64((fwd(x) - b).abs().amax(-1))
-    rd = _host64((tr(y) + s - c).abs().amax(-1))
-    X, Y, S = (_host64(t) for t in (x, y, s))
-    C, Bv = _host64(c), _host64(b)
-    off = _host64(lp.obj_offset)
-    status = st.status.to("cpu").numpy()
-    its = st.it.to("cpu").numpy()
-    trace = _host64(st.trace)
-    sols = []
-    for i in range(X.shape[0]):
-        pobj = float(C[i] @ X[i])
-        bmax = float(np.abs(Bv[i]).max(initial=0.0))
-        cmax = float(np.abs(C[i]).max(initial=0.0))
-        sols.append(Solution(
-            x=X[i], y=Y[i], s=S[i], objective=pobj + float(off[i]),
-            dual_objective=float(Bv[i] @ Y[i]) + float(off[i]),
-            status=int(status[i]), iterations=int(its[i]),
-            rel_gap=float((X[i] @ S[i]) / (1 + abs(pobj))),
-            rp_rel=float(rp[i]) / (1 + bmax),
-            rd_rel=float(rd[i]) / (1 + cmax), trace=trace[i]))
-    return sols

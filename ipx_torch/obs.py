@@ -197,10 +197,13 @@ class _Span:
 
     def __enter__(self):
         rec = self.rec
-        rec.start_ns = time.time_ns()
-        self.cpu0 = time.process_time()
         if torch.autograd._profiler_enabled():
             self.rf = torch.profiler.record_function(rec.name)
+        self.cpu0 = time.process_time()
+        # the stamps lie next to the profiler's event: a thread preempted
+        # between them moves them apart
+        rec.start_ns = time.time_ns()
+        if self.rf is not None:
             self.rf.__enter__()
         if rec.events is not None:
             rec.events[0].record()
@@ -214,8 +217,8 @@ class _Span:
             rec.events[1].record()
         if self.rf is not None:
             self.rf.__exit__(*exc)
-        rec.cpu_s = time.process_time() - self.cpu0
         rec.end_ns = time.time_ns()
+        rec.cpu_s = time.process_time() - self.cpu0
         self.trace._stack.pop()
         if rec.parent >= 0:
             self.trace.spans[rec.parent].child_ns += rec.end_ns - rec.start_ns

@@ -153,8 +153,8 @@ SCRIPT = {
              "lu_cold": (N, 11), "schur": (S, 4)},
     "numerical_failure": {"stage1": (N, 13), "in_batch": (S, 7),
                           "lu_warm": (O, 6)},
-    "near_miss": {"stage1": (M, 64, NEAR), "lu_warm": (S, 9),
-                  "lu_cold": (O, 12)},
+    "near_miss": {"stage1": (M, 64, NEAR), "in_batch": (S, 7),
+                  "lu_warm": (S, 9), "lu_cold": (O, 12)},
     "far_max_iter": {"stage1": (M, 64, FAR)},
 }
 CASES = list(SCRIPT)
@@ -186,6 +186,13 @@ EXPECTED = {
         "near_miss": (["stage1", "lu_warm", "lu_cold"], O, 85, "lu_cold"),
         "far_max_iter": (["stage1"], M, 64, "stage1"),
     },
+}
+# (entry, case) -> the port's behaviour where its contract differs from
+# ``ipx``'s: its ``solve_batch`` rescues a near-miss MAX_ITER, as both
+# packages' ``solve`` do, through the in-batch rung first
+PORT_EXPECTED = {
+    ("solve_batch", "near_miss"): (["stage1", "in_batch", "lu_warm",
+                                    "lu_cold"], O, 85, "lu_cold"),
 }
 M_SC, N_SC, MAX_IT = 4, 8, 64
 
@@ -301,22 +308,26 @@ def _run_scripted(entry, pkg, mp):
 @pytest.mark.parametrize("entry", ["solve_batch", "solve"])
 def test_ladder_control_flow_matches_ipx(entry, monkeypatch):
     """Rung sequence, state returned and cumulative iterations per lane,
-    the same in both packages and as pinned in EXPECTED: ``solve_batch``
-    rescues STALLED and NUMERICAL_FAILURE only, ``solve`` a near-miss
-    MAX_ITER too, and a lane that leaves the in-batch rung unfixed counts
-    stage 1 and its ladder rungs but not that rung."""
+    each package held to its own contract: as pinned in EXPECTED, the same
+    in both packages but where PORT_EXPECTED gives the port's.  ``ipx``'s
+    ``solve_batch`` rescues STALLED and NUMERICAL_FAILURE only, the port's
+    a near-miss MAX_ITER too, as ``solve`` does in both; a far MAX_ITER
+    stays unrescued in both; a lane that leaves the in-batch rung unfixed
+    counts stage 1 and its ladder rungs but not that rung."""
     with monkeypatch.context() as mp:
         rj, sj = _run_scripted(entry, ipx, mp)
     with monkeypatch.context() as mp:
         rt, st = _run_scripted(entry, ipx_torch, mp)
     for lane, case in enumerate(CASES):
-        rungs, status, its, source = EXPECTED[entry][case]
-        assert rj[lane] == rungs, (case, rj[lane])
-        assert rt[lane] == rungs, (case, rt[lane])
-        for sol in (sj[lane], st[lane]):
+        want = EXPECTED[entry][case]
+        port = PORT_EXPECTED.get((entry, case), want)
+        for got, sol, (rungs, status, its, source) in (
+                (rj[lane], sj[lane], want), (rt[lane], st[lane], port)):
+            assert got == rungs, (case, got)
             assert (sol.status, sol.iterations) == (status, its), case
             assert (sol.x == _marker(lane, source)).all(), case
-        assert np.array_equal(sj[lane].x, st[lane].x)
+        if port == want:
+            assert np.array_equal(sj[lane].x, st[lane].x)
 
 
 def test_ladder_off_route_or_option_rescues_nothing(monkeypatch):
@@ -345,6 +356,7 @@ RUNG_SPANS = {"in_batch": "api.rung.schur_batch",
 @pytest.mark.parametrize("entry", ["solve_batch", "solve"])
 def test_rescue_counters_match_ladder(entry, monkeypatch):
     """``api.rescue.lanes_in`` counts the lanes the ladder took,
+    ``api.rescue.near_miss_in`` the near-miss MAX_ITER lanes among them,
     ``api.rescue.lanes_fixed`` those it ended OPTIMAL; a rung span for
     each batch a rung ran (one a lane under ``solve``), inside
     ``api.rescue``."""
@@ -355,10 +367,12 @@ def test_rescue_counters_match_ladder(entry, monkeypatch):
     fixed = [lane for lane in took if sols[lane].optimal]
     got = t.summary()
     assert got["calls"] == (1 if entry == "solve_batch" else len(CASES))
+    near = [lane for lane in took if CASES[lane] == "near_miss"]
     assert got["counters"] == {"api.rescue.lanes_in": len(took),
-                               "api.rescue.lanes_fixed": len(fixed)}
-    assert (len(took), len(fixed)) == ((6, 5) if entry == "solve_batch"
-                                       else (7, 6))
+                               "api.rescue.near_miss_in": len(near),
+                               "api.rescue.lanes_fixed": len(fixed),
+                               "api.recheck.lanes_checked": len(CASES)}
+    assert (len(took), len(near), len(fixed)) == (7, 1, 6)
     for rung, name in RUNG_SPANS.items():
         lanes = sum(rung in r for r in rungs.values())
         want = min(lanes, 1) if entry == "solve_batch" else lanes

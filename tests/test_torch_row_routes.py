@@ -14,12 +14,14 @@ import pytest
 import torch
 
 import ipx_torch
+from ipx_torch import api
 from ipx_torch import mesh as meshlib
 from ipx_torch import numerics
 from ipx_torch.ipm import mehrotra
 from ipx_torch.kernels import fused as fk
 from ipx_torch.linsys import augmented, schur
 from ipx_torch.options import LINSYS_CHOICES
+from ipx_torch.problem.generate import random_feasible_lp
 
 torch.set_num_threads(1)
 
@@ -161,3 +163,23 @@ def test_card_sharded_diagonal_and_recheck_call_rows_2_and_3(forced_rows):
     assert forced_rows == [("a_matvec", False, F64), ("at_matvec", False, F64)]
     assert y.dtype == t.dtype == F64
     assert torch.equal(y, numerics.mv64(A, w))
+
+
+@pytest.mark.parametrize("a_dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_dense_recheck_calls_rows_2_and_3_once(forced_rows, a_dtype):
+    """The float64 re-check of a batch without a mesh (``solve_batch``'s
+    and ``solve``'s Solutions) takes one product each way over the whole
+    batch, float64 out, where the card takes rows 2 and 3 for an A stored
+    float32 or bf16: not one a lane."""
+    opts = ipx_torch.SolverOptions(
+        dtype="float32", max_iter=2,
+        a_storage="bfloat16" if a_dtype == BF16 else "float32")
+    gs = [random_feasible_lp(16, 32, seed=s) for s in range(3)]
+    blp = api._prepare([ipx_torch.make_lp(g.c, torch.from_numpy(g.A).to(
+        a_dtype), g.b, device="cpu") for g in gs], opts, "cpu")
+    assert blp.A.dtype == a_dtype
+    st = api._run_batch(blp, opts)
+    forced_rows.clear()
+    sols = api._states_to_solutions(blp, st)
+    assert forced_rows == [("a_matvec", False, F64), ("at_matvec", False, F64)]
+    assert len(sols) == 3 and all(s.rp_rel > 0 for s in sols)

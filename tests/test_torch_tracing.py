@@ -18,6 +18,7 @@ OPTS = ipx_torch.SolverOptions(dtype="float32")
 PARENT = {"api.call": None, "api.prepare": "api.call",
           "ipm.start": "api.call", "ipm.step": "api.call",
           "api.rescue": "api.call", "api.recheck": "api.call",
+          "api.recheck.device": "api.recheck",
           "api.recheck.to_host": "api.recheck",
           "api.recheck.lanes": "api.recheck"}
 
@@ -55,13 +56,16 @@ def test_solve_batch_spans_nest(monkeypatch):
     summ = t.summary()
     assert summ["calls"] == 1
     assert summ["spans"]["ipm.step"]["calls"] == len(steps) > 0
-    assert summ["counters"] == {"api.rescue.lanes_in": 0}
+    assert summ["counters"] == {"api.rescue.lanes_in": 0,
+                                "api.rescue.near_miss_in": 0,
+                                "api.recheck.lanes_checked": 3}
     for i, r in enumerate(t.spans):
         kids = sum(c.end_ns - c.start_ns for c in t.spans if c.parent == i)
         assert r.child_ns == kids
     whole = summ["spans"]["api.recheck"]
     parts = sum(summ["spans"][k]["seconds"]
-                for k in ("api.recheck.to_host", "api.recheck.lanes"))
+                for k in ("api.recheck.device", "api.recheck.to_host",
+                          "api.recheck.lanes"))
     assert whole["self_seconds"] == pytest.approx(whole["seconds"] - parts,
                                                   abs=1e-9)
 
@@ -102,12 +106,14 @@ def test_off_records_nothing_and_on_keeps_the_bits(monkeypatch):
     obs.count("api.rescue.lanes_in", 1)         # nothing to add to
     with obs.tracing() as t:
         on = _solve(lps)
-    dev = [r for r in t.spans if r.name in ("ipm.start", "ipm.step")]
+    dev = [r for r in t.spans
+           if r.name in ("ipm.start", "ipm.step", "api.recheck.device")]
     assert _Event.made == 2 * len(dev) and not rfs
     assert all(r.device_s == 2e-3 and r.events is None for r in dev)
     spans = t.summary()["spans"]
     assert spans["ipm.step"]["device_seconds"] == pytest.approx(
         2e-3 * spans["ipm.step"]["calls"])
+    assert spans["api.recheck.device"]["device_seconds"] == 2e-3
     assert "device_seconds" not in spans["api.recheck"]
     for a, b in zip(off, on):
         for f in ("x", "y", "s", "trace"):
@@ -117,9 +123,12 @@ def test_off_records_nothing_and_on_keeps_the_bits(monkeypatch):
 
 
 def test_span_stamps_match_the_profiler():
-    """Each recorded span has the profiler's event of its name, and their
-    starts and ends agree within 1 ms (both on ``time.time_ns()``'s
-    clock); the entry's root span and its children appear as
+    """Each recorded span has the profiler's event of its name, and the
+    event lies inside the span's stamps (both on ``time.time_ns()``'s
+    clock, to 0.1 ms); over the two calls, some span of each name starts
+    and ends within 1 ms of its event (a thread preempted between a stamp
+    and its event moves them apart by a time slice, ms on a loaded host);
+    the entry's root span and its children appear as
     ``record_function``s."""
     from torch.profiler import ProfilerActivity, profile
     lps = _lps(B=2)
@@ -128,6 +137,7 @@ def test_span_stamps_match_the_profiler():
         with torch.profiler.record_function("warm"):
             pass
         with obs.tracing() as t:
+            _solve(lps)
             _solve(lps)
     events = {}
     for e in prof.profiler.kineto_results.events():
@@ -139,6 +149,9 @@ def test_span_stamps_match_the_profiler():
         recorded.setdefault(r.name, []).append((r.start_ns, r.end_ns))
     assert set(recorded) == set(events) == set(PARENT)
     for name, spans in recorded.items():
-        assert len(spans) == len(events[name]), name
+        assert len(spans) == len(events[name]) >= 2, name
+        apart = []
         for (s, e), (ps, pe) in zip(spans, sorted(events[name])):
-            assert abs(s - ps) < 1e6 and abs(e - pe) < 1e6, name
+            assert s - 1e5 <= ps <= pe <= e + 1e5, name
+            apart.append(max(ps - s, e - pe))
+        assert min(apart) < 1e6, name
