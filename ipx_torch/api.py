@@ -31,6 +31,11 @@ class Solution:
     <= 0 at optimality of a minimize problem); ``s = c - A_eq^T y_eq -
     A_ub^T y_ub`` are reduced costs over the original variables; for
     maximize problems all duals are reported in maximize sense.
+
+    ``rel_gap``, ``rp_rel`` and ``rd_rel`` are measured in float64 from the
+    returned answer: in the user's units (the standard form's for
+    :func:`solve_general`) after presolve, of the solver's iterate on the
+    device path.
     """
 
     x: np.ndarray
@@ -365,8 +370,19 @@ def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
     ``presolve=True`` (the default, like scipy.optimize.linprog) routes
     through the host-side presolve (reductions, dependent-row elimination,
     Ruiz equilibration) and postsolves back: raw real-world data needs the
-    equilibration to reach 1e-6 in f32.  ``presolve=False`` keeps the pure
-    device path for already-clean inputs (no host-side O(m^2 n) work).
+    equilibration to reach 1e-6 in f32.  Its OPTIMAL answer holds in the
+    user's units, as measured in float64 on the host from ``(x, y, s)``
+    alone: x >= 0 and s >= 0 (s is ``c - A^T y`` cut at 0, the part cut
+    away counted as dual infeasibility), ``rel_gap`` = x.s / (1 + |c.x|)
+    <= ``tol``, and ``rp_rel`` = |A x - b|_inf / (1 + |b|_inf) and
+    ``rd_rel`` = |A^T y + s - c|_inf / (1 + |c|_inf) within
+    max(``tol_feas``, ``feas_eps_mult`` eps of the compute dtype); those
+    three fields report that answer's own measures.  The reduced solve's
+    answer is unscaled and polished (primal and dual) to get there, and
+    continued once at a tighter gap tolerance where that falls short; an
+    answer that still misses is STALLED (:func:`_solve_and_postsolve`).
+    ``presolve=False`` keeps the pure device path for already-clean inputs
+    (no host-side O(m^2 n) work).
     ``resume_from`` / ``checkpoint_to`` / ``warm_start`` always use the
     device path (their state lives in solver units).
 
@@ -401,8 +417,12 @@ def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
     return _states_to_solutions(blp, st)[0]
 
 
-def _primal_polish(A, b, x, s, c=None, support_mask=None,
-                   max_m: int = 8192):
+# the most rows an LP may have for the host-side float64 polishes (their
+# least squares cost O(m^2 n) on the host)
+POLISH_MAX_M = 8192
+
+
+def _primal_polish(A, b, x, s, c=None, support_mask=None):
     """Host-side f64 primal polish (crossover-lite, SURVEY.md §7 hard
     part 1).
 
@@ -422,8 +442,8 @@ def _primal_polish(A, b, x, s, c=None, support_mask=None,
     precisely when the support estimate is wrong (degenerate x_j ~ s_j).
     ``support_mask`` excludes columns (e.g. presolve-fixed variables) from
     the support regardless of x/s.  Otherwise the input x.  Skipped for
-    m > max_m (host lstsq cost)."""
-    if A.shape[0] > max_m:
+    m > ``POLISH_MAX_M`` (host lstsq cost)."""
+    if A.shape[0] > POLISH_MAX_M:
         return x
     S = x > np.maximum(s, 0.0)
     if support_mask is not None:
@@ -431,9 +451,15 @@ def _primal_polish(A, b, x, s, c=None, support_mask=None,
     if not S.any():
         return x
     r = b - A @ x
+    from scipy.linalg import lstsq
+    AS = A[:, S]
     try:
-        dxS, *_ = np.linalg.lstsq(A[:, S], r, rcond=None)
-    except np.linalg.LinAlgError:
+        # the complete orthogonal factorization (pivoted QR), which gives
+        # the SVD's minimum-norm answer at about half its cost; numpy's
+        # rank cutoff
+        dxS = lstsq(AS, r, cond=np.finfo(float).eps * max(AS.shape),
+                    lapack_driver="gelsy")[0]
+    except (np.linalg.LinAlgError, ValueError):
         return x
     xp = x.copy()
     xp[S] = xp[S] + dxS
@@ -472,19 +498,152 @@ _PRESOLVE_STATUS = {"infeasible": int(Status.PRIMAL_INFEASIBLE),
                     "ok": int(Status.OPTIMAL)}
 
 
-def _solve_reduced(pres, opts: SolverOptions, device) -> Solution:
+def _solve_reduced(pres, opts: SolverOptions, device):
     """The presolved, scaled LP on ``device`` as a batch of one, with the
-    ladder; the result in solver units."""
+    ladder: the batched LP and its final state, in solver units."""
     lp = make_lp(pres.c, pres.A, pres.b, dtype=dtype_of(opts.dtype),
                  device=device)
     blp = _prepare([lp], opts, device)
-    st = _rescue(blp, _run_batch(blp, opts), opts, in_batch=False)
-    return _states_to_solutions(blp, st)[0]
+    return blp, _rescue(blp, _run_batch(blp, opts), opts, in_batch=False)
+
+
+def _continue_reduced(blp: LP, st: IPMState, opts: SolverOptions,
+                      tol: float) -> IPMState:
+    """The reduced solve continued from its last iterate with the gap
+    tolerance ``tol``, for at most ``opts.max_iter`` more iterations.  The
+    best iterate is tracked afresh, against ``tol``."""
+    cap = int(st.it.max()) + opts.max_iter
+    st0 = obs.resume_state(dataclasses.replace(
+        st, status=torch.full_like(st.status, int(Status.RUNNING))), cap)
+    st0 = dataclasses.replace(
+        st0, best_merit=torch.full_like(st0.best_merit, float("inf")))
+    return _run_batch(blp, opts.replace(tol=tol, max_iter=cap), st0)
+
+
+@dataclass
+class _UserAnswer:
+    """An answer in the units of the standard-form LP ``(c, A, b)`` that
+    presolve took, measured there in float64: ``s = max(c - A^T y, 0)``,
+    the part cut away counted in ``rd_rel``; ``merit`` is the solver's
+    (each measure over its tolerance, the largest), so the answer meets
+    the contract exactly when ``merit <= 1``."""
+    x: np.ndarray
+    y: np.ndarray
+    s: np.ndarray
+    rel_gap: float
+    rp_rel: float
+    rd_rel: float
+    merit: float
+
+
+def _measure(A, b, c, x, y, opts: SolverOptions) -> _UserAnswer:
+    s = c - A.T @ y
+    sp = np.maximum(s, 0.0)
+    gap = float(x @ sp) / (1.0 + abs(float(c @ x)))
+    rp = float(np.abs(A @ x - b).max(initial=0.0)
+               / (1.0 + np.abs(b).max(initial=0.0)))
+    rd = float(np.maximum(-s, 0.0).max(initial=0.0)
+               / (1.0 + np.abs(c).max(initial=0.0)))
+    tol_feas = mehrotra.feas_tolerance(opts, dtype_of(opts.dtype))
+    merit = max(gap / opts.tol, max(rp, rd) / tol_feas)
+    return _UserAnswer(x, y, sp, gap, rp, rd, merit)
+
+
+def _dual_polish(A, y, s, support):
+    """Host-side f64 dual polish, the mirror of :func:`_primal_polish`.
+
+    ``s = c - A^T y`` of a float32 solve is at rounding size on the
+    support S = ``support`` (the columns where x > s), on either side of
+    0, and that rounding sums into x.s once the negative part is cut away.
+    One least-squares correction A_S^T dy = s_S (rank-revealing: A's
+    dependent rows are allowed) makes s vanish on S to float64 rounding.
+    Returns y + dy, or y where the correction fails; the caller keeps
+    whichever answer measures better.  Skipped for m > ``POLISH_MAX_M``
+    (host cost)."""
+    if A.shape[0] > POLISH_MAX_M or not support.any():
+        return y
+    from scipy.linalg import lstsq
+    try:
+        dy = lstsq(A[:, support].T, s[support], lapack_driver="gelsy")[0]
+    except (np.linalg.LinAlgError, ValueError):
+        return y
+    yp = y + dy
+    return yp if np.isfinite(yp).all() else y
+
+
+def _postsolve_answer(pres, red: Solution, c, A, b, opts: SolverOptions,
+                      polish: bool) -> _UserAnswer:
+    """The reduced answer ``red`` in the units of ``(c, A, b)``: x and y
+    unscaled and re-inserted, and with ``polish`` (an answer at or past an
+    OPTIMAL reduced iterate) the primal polish (span ``api.polish``,
+    counter ``api.polish.accepted``) and the dual polish (span
+    ``api.postsolve.certify``, counter ``api.postsolve.dual_accepted``),
+    the primal one kept by its own tests, the dual one where it lowers
+    the answer's merit."""
+    x = pres.postsolve_x(red.x)
+    y = pres.postsolve_y(red.y)
+    if not polish:
+        return _measure(A, b, c, x, y, opts)
+    s = c - A.T @ y
+    with obs.span("api.polish"):
+        xp = _primal_polish(A, b, x, s, c=c, support_mask=~pres.fixed_mask)
+        obs.count("api.polish.accepted", int(xp is not x))
+    with obs.span("api.postsolve.certify"):
+        ans = _measure(A, b, c, xp, y, opts)
+        # the support: where x > s, and every variable presolve fixed at a
+        # positive value (its row is gone, so y never priced it)
+        support = (xp > np.maximum(s, 0.0)) | (pres.fixed_mask & (xp > 0))
+        polished = _measure(A, b, c, xp, _dual_polish(A, y, s, support),
+                            opts)
+        take = polished.merit < ans.merit
+        obs.count("api.postsolve.dual_accepted", int(take))
+    return polished if take else ans
+
+
+def _solve_and_postsolve(pres, c, A, b, opts: SolverOptions, device):
+    """The reduced solve of ``pres`` and its answer in the units of
+    ``(c, A, b)``: ``(answer, status, iterations, trace)``.
+
+    OPTIMAL only for an answer that meets the contract there
+    (``merit <= 1``: the gap within ``tol``, both residuals within the
+    solver's feasibility tolerance).  Where the reduced solve met its
+    tolerances and the polished answer does not, the reduced solve is
+    continued once from its last iterate with the gap tolerance tightened
+    by the ratio measured (span ``api.postsolve.resume``, counter
+    ``api.postsolve.resumes``); an answer that still misses the contract
+    is reported STALLED.  Span ``api.postsolve`` around all of it after the
+    reduced solve returns."""
+    blp, st = _solve_reduced(pres, opts, device)
+    red = _states_to_solutions(blp, st)[0]
+    status, its, trace = red.status, red.iterations, red.trace
+    with obs.span("api.postsolve"):
+        ans = _postsolve_answer(pres, red, c, A, b, opts,
+                                polish=red.optimal)
+        resumed = red.optimal and ans.merit > 1.0
+        obs.count("api.postsolve.resumes", int(resumed))
+        if resumed:
+            with obs.span("api.postsolve.resume"):
+                # the reduced gap reached, over the measured ratio, halved
+                # for room
+                reached = min(opts.tol, red.rel_gap) or opts.tol
+                tol = 0.5 * reached / ans.merit
+                red2 = _states_to_solutions(
+                    blp, _continue_reduced(blp, st, opts, tol))[0]
+                # its best iterate is polished whatever its status: the run
+                # started from an OPTIMAL one
+                ans2 = _postsolve_answer(pres, red2, c, A, b, opts,
+                                         polish=True)
+                if ans2.merit < ans.merit:
+                    ans, its, trace = ans2, red2.iterations, red2.trace
+            if ans.merit > 1.0:
+                status = int(Status.STALLED)
+    return ans, status, its, trace
 
 
 def _solve_presolved(c, A, b, opts: SolverOptions, device) -> Solution:
     """Standard-form solve through presolve + postsolve (host reductions,
-    dependent-row elimination, Ruiz scaling)."""
+    dependent-row elimination, Ruiz scaling), answered in the user's
+    units (:func:`_solve_and_postsolve`)."""
     if isinstance(c, LP):
         c, A, b = _host64(c.c), _host64(c.A), _host64(c.b)
     else:
@@ -502,26 +661,13 @@ def _solve_presolved(c, A, b, opts: SolverOptions, device) -> Solution:
         return _empty_solution(x, A.shape[0], A.shape[1], float(c @ x),
                                _PRESOLVE_STATUS[pres.status])
 
-    red = _solve_reduced(pres, opts, device)
-    x = pres.postsolve_x(red.x)
-    y = pres.postsolve_y(red.y)
-    s = c - A.T @ y
-    if red.optimal:
-        x = _primal_polish(A, b, x, s, c=c, support_mask=~pres.fixed_mask)
-    pobj = float(c @ x)
-    rp_rel = float(np.abs(A @ x - b).max(initial=0.0)
-                   / (1 + np.abs(b).max(initial=0.0)))
-    rd_rel = float(np.maximum(-s, 0).max(initial=0.0)
-                   / (1 + np.abs(c).max(initial=0.0)))
-    # rel_gap stays the REDUCED (Ruiz-scaled) problem's complementarity gap,
-    # the solver's convergence metric: x@s in original units can exceed tol
-    # on degenerate instances (unscaling amplifies x_j s_j cross terms) even
-    # when the certified solve met the contract.  The polish cannot move it
-    # materially: its complementarity-change guard caps what it may change.
+    ans, status, its, trace = _solve_and_postsolve(pres, c, A, b, opts,
+                                                   device)
     return Solution(
-        x=x, y=y, s=s, objective=pobj, dual_objective=float(b @ y),
-        status=red.status, iterations=red.iterations, rel_gap=red.rel_gap,
-        rp_rel=rp_rel, rd_rel=rd_rel, trace=red.trace)
+        x=ans.x, y=ans.y, s=ans.s, objective=float(c @ ans.x),
+        dual_objective=float(b @ ans.y), status=status, iterations=its,
+        rel_gap=ans.rel_gap, rp_rel=ans.rp_rel, rd_rel=ans.rd_rel,
+        trace=trace)
 
 
 @obs.entry
@@ -532,7 +678,11 @@ def solve_general(glp, options: Optional[SolverOptions] = None,
     Host pipeline: standard-form conversion -> presolve + Ruiz
     equilibration -> IPM solve on ``device`` of the scaled reduced problem
     -> postsolve back to original variables and units.  This is the path
-    BASELINE config 2 (Netlib-style suite) exercises.
+    BASELINE config 2 (Netlib-style suite) exercises.  OPTIMAL, ``rel_gap``,
+    ``rp_rel`` and ``rd_rel`` are :func:`solve`'s contract, held and
+    measured in the standard form's units (the LP the user's one is
+    equivalent to); ``s`` stays the reduced costs over the original
+    variables, of either sign where bounds allow it.
     """
     opts = options or DEFAULT_OPTIONS
     if not isinstance(glp, GeneralLP):
@@ -554,17 +704,11 @@ def solve_general(glp, options: Optional[SolverOptions] = None,
                                glp.n, -obj if maximize else obj,
                                _PRESOLVE_STATUS[pres.status])
 
-    red = _solve_reduced(pres, opts, device)
-
-    # postsolve: scaled-reduced -> std-form z and duals -> original x
-    z = pres.postsolve_x(red.x)
-    y_std = pres.postsolve_y(red.y)
-    if red.optimal:
-        # f64 support-restricted primal polish on the std-form triple
-        s_std = c_s - A_s.T @ y_std
-        z = _primal_polish(A_s, b_s, z, s_std, c=c_s,
-                           support_mask=~pres.fixed_mask)
-    x = post.x_orig(z)
+    # the answer in the standard form's units, polished and held to the
+    # contract there
+    ans, status, its, trace = _solve_and_postsolve(pres, c_s, A_s, b_s,
+                                                   opts, device)
+    x = post.x_orig(ans.x)
 
     # duals in ORIGINAL problem units: std-form rows are [A_eq | A_ub |
     # appended bound rows]; bound-row duals are dropped from y (their
@@ -572,21 +716,21 @@ def solve_general(glp, options: Optional[SolverOptions] = None,
     # costs are recomputed against the original gradient.
     m_eq = glp.A_eq.shape[0]
     m_ub = glp.A_ub.shape[0]
-    y = y_std[:m_eq + m_ub].copy()
+    y = ans.y[:m_eq + m_ub].copy()
     s = glp.c - glp.A_eq.T @ y[:m_eq] - glp.A_ub.T @ y[m_eq:]
     obj = float(np.asarray(glp.c) @ x) + off
     # std form: min c_s@z + conv_offset, A_s z = b_s  =>  dual obj in
     # original (minimize) units is b_s@y + conv_offset (+ file constant)
-    dual_obj = float(b_s @ y_std) + post.obj_offset + off
+    dual_obj = float(b_s @ ans.y) + post.obj_offset + off
     if maximize:
         obj, dual_obj = -obj, -dual_obj
         y, s = -y, -s
     return Solution(
         x=x, y=y, s=s,
         objective=obj, dual_objective=dual_obj,
-        status=red.status, iterations=red.iterations,
-        rel_gap=red.rel_gap, rp_rel=red.rp_rel, rd_rel=red.rd_rel,
-        trace=red.trace)
+        status=status, iterations=its,
+        rel_gap=ans.rel_gap, rp_rel=ans.rp_rel, rd_rel=ans.rd_rel,
+        trace=trace)
 
 
 @obs.entry

@@ -66,16 +66,29 @@ def _matvecs(A: torch.Tensor, opts: SolverOptions):
     the products go through the ranks (``schur.matvecs``); the augmented
     routes' are ``augmented._products``.  On the card the sharded and
     augmented routes' products are rows 2 and 3
-    (``schur.use_row_kernels``).  A bf16-stored A cannot meet an f32 vector
-    in a library matmul: the kernels upcast it in registers, ``mv`` makes a
-    transient copy, a block of rows at a time."""
+    (``schur.use_row_kernels``), and so are the dense route's under
+    ``matvec_backend="xla"`` (``normal_eq.use_row_matvec``).  A bf16-stored
+    A cannot meet an f32 vector in a library matmul: the kernels upcast it
+    in registers, ``mv`` makes a transient copy, a block of rows at a
+    time."""
     if normal_eq.use_fused_matvec(opts, A):
         return (lambda w: fk.a_matvec(A, w)), (lambda v: fk.at_matvec(A, v))
+    if normal_eq.use_row_matvec(opts, A):
+        return ((lambda w: fk.a_matvec(A, w.contiguous())),
+                (lambda v: fk.at_matvec(A, v.contiguous())))
     if opts.linsys.startswith("sharded"):
         return schur.matvecs(A, wide=opts.linsys == "sharded_schur")
     if opts.linsys.startswith("augmented"):
         return augmented._products(A, opts)
     return (lambda w: mv(A, w)), (lambda v: mv(A.mT, v))
+
+
+def feas_tolerance(opts: SolverOptions, dtype: torch.dtype) -> float:
+    """The feasibility tolerance of the convergence test: ``tol_feas``,
+    floored at the dtype's representation limit (an exactly feasible x
+    rounded to the working precision shows a residual at the matvec
+    rounding floor, ~ c*eps for normalized data)."""
+    return max(opts.tol_feas, opts.feas_eps_mult * torch.finfo(dtype).eps)
 
 
 def max_step(v: torch.Tensor, dv: torch.Tensor) -> torch.Tensor:
@@ -406,11 +419,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     finite = (torch.isfinite(x_new).all(-1) & torch.isfinite(y_new).all(-1)
               & torch.isfinite(s_new).all(-1) & torch.isfinite(rel_gap)
               & fac.ok)
-    # Feasibility floor at the dtype's representation limit: an exactly
-    # feasible x rounded to the working precision shows a residual at the
-    # matvec rounding floor, ~ c*eps for normalized data.
-    eps = torch.finfo(dtype).eps
-    tol_feas = max(opts.tol_feas, opts.feas_eps_mult * eps)
+    tol_feas = feas_tolerance(opts, dtype)
     converged = ((rel_gap <= opts.tol) & (rp_rel <= tol_feas)
                  & (rd_rel <= tol_feas))
     # mu floor: below this, f32 conditioning degrades instead of improving.

@@ -381,6 +381,19 @@ def use_fused_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
     return opts.linsys == "dense"
 
 
+def use_row_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
+    """Whether the dense route's separate products A w and A^T v under
+    ``matvec_backend="xla"`` go through rows 2 and 3
+    (``kernels.fused.a_matvec`` / ``at_matvec``: float64 sums rounded once,
+    no copy of A): for an A stored f32 or bf16 on a CUDA device.  The
+    library's float32 products leave the iterate's dual residual near 1e-6
+    of its scale, against a tolerance of 1.9e-6, and stage 1 then crawls
+    with short steps; summed in float64 it sits near 1e-7 (PERF.md,
+    ``dense_lp.single``).  On the CPU the library products stay."""
+    return (opts.linsys == "dense" and opts.matvec_backend == "xla"
+            and A.is_cuda and A.dtype in (torch.float32, torch.bfloat16))
+
+
 def _chol_solve(fac: NormalEqFactor, rhs: torch.Tensor) -> torch.Tensor:
     """Dispatches on what the factor carries, not on the backend's name."""
     if fac.LTp or fac.LT is not None:
@@ -426,6 +439,10 @@ def solve(fac: NormalEqFactor, A: torch.Tensor, rhs: torch.Tensor,
         def op_true(v):
             # one A stream: stripe-fused A (d2 (A^T v))
             return fk.ata_apply(A, v, fac.d2, None)[0]
+    elif use_row_matvec(opts, A):
+        def op_true(v):
+            u = fac.d2 * fk.at_matvec(A, v.contiguous())
+            return fk.a_matvec(A, u.contiguous())
     else:
         def op_true(v):
             return mv(A, fac.d2 * mv(A.mT, v))

@@ -203,9 +203,9 @@ def use_row_kernels(linsys: str, dtype: torch.dtype, device) -> bool:
     augmented ones (``"augmented"``, ``"augmented_schur"``), for an A stored
     float32 or bfloat16 on a CUDA device.  The dense route takes rows 1-3
     under ``matvec_backend="fused"`` (``normal_eq.use_fused_matvec``) and
-    library products under ``"xla"``.  On the CPU, and for an A stored
-    float64, every route keeps its library product (``numerics.mv``,
-    ``mv64``, ``mv_wide``) bit for bit."""
+    rows 2 and 3 under ``"xla"`` (``normal_eq.use_row_matvec``).  On the
+    CPU, and for an A stored float64, every route keeps its library product
+    (``numerics.mv``, ``mv64``, ``mv_wide``) bit for bit."""
     return (linsys != "dense" and torch.device(device).type == "cuda"
             and dtype in _ROW_DTYPES)
 

@@ -104,7 +104,9 @@ class SolverOptions:
     chol_backend: str = "xla"
     # "fused" evaluates the matrix-free normal operator and the KKT
     # refinement right-hand sides with the one-stream kernels of
-    # ``ipx_torch.kernels.fused``; "xla" uses library matmuls.
+    # ``ipx_torch.kernels.fused``; "xla" takes A w and A^T v apart, on rows
+    # 2 and 3 of the kernels on the card (float64 sums) and as library
+    # matmuls on the CPU.
     matvec_backend: str = "xla"  # "xla" | "fused"
     # "bfloat16" keeps A in bf16 in device memory; all arithmetic stays f32
     # (kernels upcast in registers).  Exact when A's entries are

@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ipx_torch import obs
+
 
 @dataclass
 class PresolveResult:
@@ -62,10 +64,10 @@ def ruiz_equilibrate(A: np.ndarray, iters: int = 10, tol: float = 1e-2):
     m, n = A.shape
     r = np.ones(m)
     c = np.ones(n)
-    As = A.copy()
+    As = np.abs(A)          # |A| scaled as A would be: the same norms
     for _ in range(iters):
-        rn = np.sqrt(np.abs(As).max(axis=1))
-        cn = np.sqrt(np.abs(As).max(axis=0))
+        rn = np.sqrt(As.max(axis=1))
+        cn = np.sqrt(As.max(axis=0))
         rn[rn == 0] = 1.0
         cn[cn == 0] = 1.0
         As /= rn[:, None]
@@ -97,12 +99,57 @@ def presolve(c: np.ndarray, A: np.ndarray, b: np.ndarray,
     """Reduce and equilibrate a standard-form LP (host, float64).
 
     ``pow2_scales`` rounds every scale factor to a power of two (exact in
-    binary FP) — set when the downstream solve stores A in bf16."""
-    c = np.asarray(c, np.float64).copy()
-    A = np.asarray(A, np.float64).copy()
-    b = np.asarray(b, np.float64).copy()
-    m0, n0 = A.shape
+    binary FP) — set when the downstream solve stores A in bf16.
 
+    Spans (``obs.span``): ``api.presolve`` around the whole, with
+    ``api.presolve.reduce`` (the reduction loop), ``api.presolve.scale``
+    (Ruiz and the cost scaling) and ``api.presolve.rank`` (the pivoted QR
+    and the consistency test of the rows it drops); counters
+    ``api.presolve.rows_dropped`` (by the loop), ``api.presolve.cols_fixed``
+    and ``api.presolve.rank_dropped`` (by the QR)."""
+    with obs.span("api.presolve"):
+        c = np.asarray(c, np.float64).copy()
+        A = np.asarray(A, np.float64).copy()
+        b = np.asarray(b, np.float64).copy()
+        m0, n0 = A.shape
+        with obs.span("api.presolve.reduce"):
+            red = _reduce(c, A, b, feas_tol)
+        keep_rows, keep_cols, fixed_vals, fixed_mask, obj_offset, status = red
+        obs.count("api.presolve.rows_dropped", m0 - int(keep_rows.sum()))
+        obs.count("api.presolve.cols_fixed", int(fixed_mask.sum()))
+
+        kept_rows = np.flatnonzero(keep_rows)
+        kept_cols = np.flatnonzero(keep_cols)
+        Ar = A[np.ix_(kept_rows, kept_cols)]
+        with obs.span("api.presolve.scale"):
+            A_sc, b_sc, c_sc, r, s = _scale(Ar, b[kept_rows], c[kept_cols],
+                                            status == "ok", ruiz_iters,
+                                            pow2_scales)
+        if status == "ok" and A_sc.shape[0] > 1 and A_sc.size:
+            with obs.span("api.presolve.rank"):
+                keep_i = _independent_rows(A_sc, b_sc)
+            if keep_i is None:
+                status = "infeasible"
+            else:
+                obs.count("api.presolve.rank_dropped",
+                          A_sc.shape[0] - keep_i.size)
+                A_sc, b_sc = A_sc[keep_i], b_sc[keep_i]
+                r, kept_rows = r[keep_i], kept_rows[keep_i]
+
+        return PresolveResult(
+            c=c_sc, A=A_sc, b=b_sc, obj_offset=obj_offset,
+            row_scale=r, col_scale=s,
+            kept_cols=kept_cols, fixed_vals=fixed_vals, fixed_mask=fixed_mask,
+            kept_rows=kept_rows, n_orig=n0, m_orig=m0, status=status,
+        )
+
+
+def _reduce(c: np.ndarray, A: np.ndarray, b: np.ndarray, feas_tol: float):
+    """Steps 1-4 of the pipeline, repeated until none applies; ``b`` is
+    updated in place by the singleton substitutions.  Returns
+    ``(keep_rows, keep_cols, fixed_vals, fixed_mask, obj_offset,
+    status)``."""
+    m0, n0 = A.shape
     fixed_vals = np.zeros(n0)
     fixed_mask = np.zeros(n0, bool)
     keep_rows = np.ones(m0, bool)
@@ -171,14 +218,11 @@ def presolve(c: np.ndarray, A: np.ndarray, b: np.ndarray,
             norms = np.abs(Av).max(axis=1)
             R = Av / norms[:, None]
             bn = bv / norms
-            _, first, inv = np.unique(np.round(R, 12), axis=0,
-                                      return_index=True, return_inverse=True)
-            if first.size < R.shape[0]:
-                drop = np.ones(R.shape[0], bool)
-                drop[first] = False
+            rep = _first_equal_rows(np.round(R, 12))
+            drop = rep != np.arange(R.shape[0])
+            if drop.any():
                 for i in np.flatnonzero(drop):
-                    rep = first[inv[i]]
-                    if abs(bn[i] - bn[rep]) > feas_tol * bnorm():
+                    if abs(bn[i] - bn[rep[i]]) > feas_tol * bnorm():
                         status = "infeasible"
                         break
                 else:
@@ -186,14 +230,26 @@ def presolve(c: np.ndarray, A: np.ndarray, b: np.ndarray,
                     changed = True
                     continue
                 break
+    return keep_rows, keep_cols, fixed_vals, fixed_mask, obj_offset, status
 
-    kept_rows = np.flatnonzero(keep_rows)
-    kept_cols = np.flatnonzero(keep_cols)
-    Ar = A[np.ix_(kept_rows, kept_cols)]
-    br = b[kept_rows]
-    cr = c[kept_cols]
 
-    if status == "ok" and Ar.size:
+def _first_equal_rows(R: np.ndarray) -> np.ndarray:
+    """For each row of ``R``, the index of the first row equal to it in
+    value (``-0.0`` equal to ``0.0``): the row's own index where it is the
+    first.  One hash of each row's bytes, where a lexicographic sort of
+    the rows costs O(m log m) comparisons of n entries."""
+    R = np.ascontiguousarray(R + 0.0)        # -0.0 + 0.0 is +0.0
+    first: dict = {}
+    return np.array([first.setdefault(row.tobytes(), i)
+                     for i, row in enumerate(R)], dtype=np.int64)
+
+
+def _scale(Ar: np.ndarray, br: np.ndarray, cr: np.ndarray, ok: bool,
+           ruiz_iters: int, pow2_scales: bool):
+    """Step 5 and the cost scaling: ``(A_sc, b_sc, c_sc, r, s)`` with
+    ``A_sc = diag(r) Ar diag(s)``; unit scales where the reductions
+    already settled the LP (``ok`` false)."""
+    if ok and Ar.size:
         r, s = ruiz_equilibrate(Ar, iters=ruiz_iters)
         if pow2_scales:
             r = _pow2_round(r)
@@ -216,48 +272,44 @@ def presolve(c: np.ndarray, A: np.ndarray, b: np.ndarray,
     # are left alone — scaling them UP is what made the full [[A,b],[c,0]]
     # equilibration regress the netlib suite in round 1 (battery: 6/6 with
     # this form, 5/6 with the symmetric form).
-    if status == "ok" and c_sc.size:
+    if ok and c_sc.size:
         cost_fix = 1.0 / np.sqrt(np.maximum(np.abs(c_sc), 1.0))
         if pow2_scales:
             cost_fix = _pow2_round(cost_fix)
         A_sc = A_sc * cost_fix[None, :]
         c_sc = c_sc * cost_fix
         s = s * cost_fix
+    return A_sc, b_sc, c_sc, r, s
 
-    # --- dependent-row elimination (rank-revealing QR on the equilibrated
-    # matrix).  Netlib-class LPs routinely carry linearly dependent rows,
-    # which make A A^T exactly singular and break the normal-equations IPM;
-    # exact-duplicate removal above does not catch general combinations.
-    # Dropped rows must be CONSISTENT (b in the row space) or the problem
-    # is infeasible.  Dual postsolve reports y = 0 on dropped rows (a valid
-    # dual completion for a consistent dependent row).
-    if status == "ok" and A_sc.shape[0] > 1 and A_sc.size:
-        from scipy.linalg import qr as _qr
-        _, R, piv = _qr(A_sc.T, mode="economic", pivoting=True)
-        diag = np.abs(np.diag(R))
-        if diag.size:
-            tol_r = max(A_sc.shape) * np.finfo(float).eps * diag[0]
-            rank = int((diag > tol_r).sum())
-        else:
-            rank = 0
-        if rank < A_sc.shape[0]:
-            keep_i = np.sort(piv[:rank])
-            drop_i = np.sort(piv[rank:])
-            Wc, *_ = np.linalg.lstsq(A_sc[keep_i].T, A_sc[drop_i].T,
-                                     rcond=None)
-            b_pred = Wc.T @ b_sc[keep_i]
-            bscale = 1.0 + np.abs(b_sc).max(initial=0.0)
-            if np.abs(b_pred - b_sc[drop_i]).max(initial=0.0) > 1e-7 * bscale:
-                status = "infeasible"
-            else:
-                A_sc = A_sc[keep_i]
-                b_sc = b_sc[keep_i]
-                r = r[keep_i]
-                kept_rows = kept_rows[keep_i]
 
-    return PresolveResult(
-        c=c_sc, A=A_sc, b=b_sc, obj_offset=obj_offset,
-        row_scale=r, col_scale=s,
-        kept_cols=kept_cols, fixed_vals=fixed_vals, fixed_mask=fixed_mask,
-        kept_rows=kept_rows, n_orig=n0, m_orig=m0, status=status,
-    )
+def _independent_rows(A_sc: np.ndarray, b_sc: np.ndarray):
+    """Dependent-row elimination (rank-revealing QR on the equilibrated
+    matrix): the rows to keep, sorted, or None where a dropped row is
+    inconsistent and the LP infeasible.
+
+    Netlib-class LPs routinely carry linearly dependent rows, which make
+    A A^T exactly singular and break the normal-equations IPM;
+    exact-duplicate removal above does not catch general combinations.
+    Dropped rows must be CONSISTENT (b in the row space) or the problem is
+    infeasible.  Dual postsolve reports y = 0 on dropped rows (a valid dual
+    completion for a consistent dependent row)."""
+    from scipy.linalg import qr, solve_triangular
+    R, piv = qr(A_sc.T, mode="r", pivoting=True)     # Q is not needed
+    diag = np.abs(np.diag(R))
+    if diag.size:
+        tol_r = max(A_sc.shape) * np.finfo(float).eps * diag[0]
+        rank = int((diag > tol_r).sum())
+    else:
+        rank = 0
+    if rank == A_sc.shape[0]:
+        return np.arange(rank)
+    # A_sc^T[:, piv] = Q [R11 R12; 0 R22] with R22 negligible: each dropped
+    # row is the kept rows' combination W = R11^-1 R12, which is also the
+    # least-squares fit of the dropped rows by the kept ones (the part R22
+    # that it leaves is orthogonal to them)
+    W = solve_triangular(R[:rank, :rank], R[:rank, rank:])
+    b_pred = W.T @ b_sc[piv[:rank]]
+    bscale = 1.0 + np.abs(b_sc).max(initial=0.0)
+    if np.abs(b_pred - b_sc[piv[rank:]]).max(initial=0.0) > 1e-7 * bscale:
+        return None
+    return np.sort(piv[:rank])

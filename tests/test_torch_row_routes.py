@@ -2,13 +2,16 @@
 / ``at_matvec``) and which stay library products, route by route.
 
 ``schur.use_row_kernels`` decides: the sharded and augmented routes on a
-CUDA device with A stored float32 or bf16.  On the CPU every route keeps the
-library product it had, bit for bit (``numerics.mv``, ``mv64``,
+CUDA device with A stored float32 or bf16; ``normal_eq.use_row_matvec``
+for the dense route under ``matvec_backend="xla"``.  On the CPU every route
+keeps the library product it had, bit for bit (``numerics.mv``, ``mv64``,
 ``mv_wide``).  Where the decision says so, each of the routes' product
 sites calls the row kernels' wrappers: checked here on the CPU with the
 decision forced and the wrappers recorded (their plain versions then run).
 No JAX, no GPU.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +22,7 @@ from ipx_torch import mesh as meshlib
 from ipx_torch import numerics
 from ipx_torch.ipm import mehrotra
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import augmented, schur
+from ipx_torch.linsys import augmented, normal_eq, schur
 from ipx_torch.options import LINSYS_CHOICES
 from ipx_torch.problem.generate import random_feasible_lp
 
@@ -41,6 +44,27 @@ def test_use_row_kernels(linsys, device, dtype):
     on_card = torch.device(device).type == "cuda"
     want = linsys in ROUTES_ON_ROWS and on_card and dtype != F64
     assert schur.use_row_kernels(linsys, dtype, device) is want
+
+
+def _on(device, dtype):
+    """An A as the decisions see it: its device and storage dtype."""
+    return SimpleNamespace(is_cuda=torch.device(device).type == "cuda",
+                           dtype=dtype)
+
+
+@pytest.mark.parametrize("backend", ["xla", "fused"])
+@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [F32, BF16, F64], ids=["f32", "bf16", "f64"])
+def test_use_row_matvec(backend, linsys, device, dtype):
+    """The dense route under ``"xla"`` takes rows 2 and 3 on the card for an
+    A stored f32 or bf16; ``"fused"`` takes rows 1-3 instead, the other
+    routes decide by ``schur.use_row_kernels``, and the CPU keeps its
+    library products."""
+    opts = ipx_torch.SolverOptions(linsys=linsys, matvec_backend=backend)
+    want = (linsys == "dense" and backend == "xla" and device == "cuda"
+            and dtype != F64)
+    assert normal_eq.use_row_matvec(opts, _on(device, dtype)) is want
 
 
 def _lp_arrays(B=2, m=24, n=40, seed=0, dtype=F32):
@@ -109,6 +133,9 @@ def forced_rows(monkeypatch):
 
     monkeypatch.setattr(schur, "use_row_kernels",
                         lambda linsys, dtype, device: linsys != "dense")
+    row_matvec = normal_eq.use_row_matvec
+    monkeypatch.setattr(normal_eq, "use_row_matvec",
+                        lambda opts, A: row_matvec(opts, _on("cuda", A.dtype)))
     monkeypatch.setattr(fk, "a_matvec", a_rec)
     monkeypatch.setattr(fk, "at_matvec", at_rec)
     return calls
@@ -117,18 +144,15 @@ def forced_rows(monkeypatch):
 @pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
 def test_card_routes_call_rows_2_and_3(forced_rows, linsys):
     """Where the decision says so, the routes' products go to the row
-    kernels: rounded to float32 on the augmented routes and ``"sharded"``,
-    float64 out through the all-reduce on ``"sharded_schur"``; the dense
-    route under ``matvec_backend="xla"`` calls neither."""
+    kernels: rounded to float32 on the dense route under
+    ``matvec_backend="xla"``, the augmented routes and ``"sharded"``,
+    float64 out through the all-reduce on ``"sharded_schur"``."""
     A, w, v, _ = _lp_arrays(dtype=BF16)
     opts = ipx_torch.SolverOptions(linsys=linsys)
     with schur.use_mesh(meshlib.make_mesh()):
         fwd, tr = mehrotra._matvecs(A, opts)
         y, t = fwd(w), tr(v)
     assert y.dtype == t.dtype == F32
-    if linsys == "dense":
-        assert forced_rows == []
-        return
     out = F64 if linsys == "sharded_schur" else F32
     assert forced_rows == [("a_matvec", False, out), ("at_matvec", False, out)]
     # on the CPU the wrappers run their plain versions: float32 products,
@@ -137,6 +161,25 @@ def test_card_routes_call_rows_2_and_3(forced_rows, linsys):
     ref_y = Af.double() @ w.double().unsqueeze(-1)
     assert (y.double() - ref_y.squeeze(-1)).abs().max() <= 1e-6
     assert t.shape == (A.shape[0], A.shape[2])
+
+
+def test_card_dense_cg_operator_calls_rows_2_and_3(forced_rows):
+    """The dense route's matrix-free CG operator under ``"xla"``, A (d2
+    (A^T v)), is one product each way on the rows; the fused route keeps
+    row 1's single stream (not recorded here)."""
+    A, w, v, d2 = _lp_arrays(dtype=F32)
+    for backend in ("xla", "fused"):
+        opts = ipx_torch.SolverOptions(matvec_backend=backend,
+                                       refine_steps=1)
+        fac = normal_eq.factor(A, d2, opts)
+        forced_rows.clear()
+        dy = normal_eq.solve(fac, A, v, opts)
+        # one operator product for the first residual, one in the CG step
+        pair = [("at_matvec", False, F32), ("a_matvec", False, F32)]
+        assert forced_rows == (pair * 2 if backend == "xla" else [])
+        M = A.double() @ (d2.double().unsqueeze(-1) * A.double().mT)
+        res = v.double() - (M @ dy.double().unsqueeze(-1)).squeeze(-1)
+        assert res.abs().max() <= 1e-3 * v.abs().max()
 
 
 def test_card_augmented_products_call_rows_2_and_3(forced_rows):
