@@ -11,7 +11,8 @@ import torch
 
 from ipx_torch import obs
 from ipx_torch.ipm import batched, mehrotra
-from ipx_torch.ipm.state import IPMState, select_lanes
+from ipx_torch.ipm.state import (IPMState, put_lanes, select_lanes,
+                                 take_lanes)
 from ipx_torch.numerics import dtype_of, inf_norm
 from ipx_torch.options import DEFAULT_OPTIONS, SolverOptions, check_ported
 from ipx_torch.problem.batching import bucket_lps
@@ -153,23 +154,6 @@ def _run_batch(lp: LP, opts: SolverOptions,
     return batched.run_batch(lp, opts, state0)
 
 
-def _lanes(obj, idx: torch.Tensor):
-    """Lanes ``idx`` of a batched LP or IPMState, each field gathered by
-    index as stored (a bf16 A stays bf16)."""
-    return type(obj)(**{f.name: getattr(obj, f.name)[idx]
-                        for f in dataclasses.fields(obj)})
-
-
-def _put(st: IPMState, idx: torch.Tensor, sub: IPMState) -> IPMState:
-    """``st`` with lanes ``idx`` replaced by the lanes of ``sub``."""
-    out = {}
-    for f in dataclasses.fields(st):
-        a = getattr(st, f.name).clone()
-        a[idx] = getattr(sub, f.name)
-        out[f.name] = a
-    return IPMState(**out)
-
-
 def _warm(lp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
     """A rung's warm start: each lane's best iterate, re-centered."""
     return mehrotra.warm_start_state(lp, st.best_x, st.best_y, st.best_s,
@@ -201,13 +185,14 @@ def _ladder(lp: LP, st: IPMState, opts: SolverOptions) -> IPMState:
         if todo.numel() == 0:
             break
         with obs.span("api.rung." + name):
-            sub_lp = _lanes(lp, todo)
-            state0 = _warm(sub_lp, _lanes(st, todo), rung) if warm else None
+            sub_lp = take_lanes(lp, todo)
+            state0 = (_warm(sub_lp, take_lanes(st, todo), rung) if warm
+                      else None)
             res = _run_batch(sub_lp, rung, state0)
             spent[todo] += res.it
             res = dataclasses.replace(res, it=spent[todo])
             fixed = res.status == int(Status.OPTIMAL)
-            out = _put(out, todo[fixed], _lanes(res, fixed))
+            out = put_lanes(out, todo[fixed], take_lanes(res, fixed))
             todo = todo[~fixed]
     obs.count("api.rescue.lanes_fixed", st.it.shape[0] - todo.numel())
     return out
@@ -248,18 +233,18 @@ def _rescue(lp: LP, st: IPMState, opts: SolverOptions,
         out, left = st, torch.tensor(bad, device=st.it.device)
         if in_batch:
             with obs.span("api.rung.schur_batch"):
-                sub_lp, sub_st = _lanes(lp, left), _lanes(st, left)
+                sub_lp, sub_st = take_lanes(lp, left), take_lanes(st, left)
                 asch = opts.replace(linsys="augmented_schur",
                                     refactor_period=1)
                 res = _run_batch(sub_lp, asch, _warm(sub_lp, sub_st, asch))
                 res = dataclasses.replace(res, it=res.it + sub_st.it)
                 fixed = res.status == int(Status.OPTIMAL)
-                out = _put(st, left[fixed], _lanes(res, fixed))
+                out = put_lanes(st, left[fixed], take_lanes(res, fixed))
                 left = left[~fixed]
             obs.count("api.rescue.lanes_fixed", len(bad) - left.numel())
         if left.numel():
-            out = _put(out, left, _ladder(_lanes(lp, left),
-                                          _lanes(st, left), opts))
+            out = put_lanes(out, left, _ladder(take_lanes(lp, left),
+                                               take_lanes(st, left), opts))
         return out
 
 
@@ -862,7 +847,8 @@ def _sharded_endgame(lp: LP, st: IPMState, opts: SolverOptions,
     whole = len(bad) == st.status.shape[0]
     idx = torch.tensor(bad, device=st.it.device)
     # all lanes: no gather (at config 4 a copy of A's block is 4.3 GB)
-    sub_lp, sub_st = (lp, st) if whole else (_lanes(lp, idx), _lanes(st, idx))
+    sub_lp, sub_st = ((lp, st) if whole
+                      else (take_lanes(lp, idx), take_lanes(st, idx)))
     sch = opts.replace(linsys="sharded_schur")
     state0 = mehrotra.warm_start_state(sub_lp, sub_st.best_x, sub_st.best_y,
                                        sub_st.best_s, sch)
@@ -871,7 +857,7 @@ def _sharded_endgame(lp: LP, st: IPMState, opts: SolverOptions,
     keep = res.best_merit < sub_st.best_merit
     if whole:
         return select_lanes(keep, res, st)
-    return _put(st, idx[keep], _lanes(res, keep))
+    return put_lanes(st, idx[keep], take_lanes(res, keep))
 
 
 def _large_share(c, A, b, mesh, opts: SolverOptions, device) -> LP:

@@ -21,7 +21,7 @@ import torch
 from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.kernels import fused as fk
 from ipx_torch.linsys import augmented, normal_eq, schur
-from ipx_torch.numerics import inf_norm, mv, vdot
+from ipx_torch.numerics import inf_norm, lane_sum, mv, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
@@ -391,7 +391,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
                    * dx.unsqueeze(1))
                   * (s.unsqueeze(1) + sc * alpha_d.reshape(-1, 1, 1)
                      * ds.unsqueeze(1)))                         # (B, K, n)
-        mu_all = xs_all.sum(dim=2) / n
+        mu_all = lane_sum(xs_all) / n
         ok = xs_all.amin(dim=2) >= opts.neighborhood_gamma * mu_all
         # first True per lane (argmax of a 0/1 tensor returns the first
         # maximal index); K - 1 where none holds

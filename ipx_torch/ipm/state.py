@@ -60,6 +60,34 @@ def init_state(x: torch.Tensor, y: torch.Tensor, s: torch.Tensor,
     )
 
 
+def take_lanes(obj, idx: torch.Tensor):
+    """Lanes ``idx`` of a batched dataclass: an LP, an IPMState or a
+    linear-system factor.  Each tensor field is gathered by index as stored
+    (a bf16 A stays bf16); tuples (``NormalEqFactor.LTp``) and nested
+    factors are followed; None, scalars and empty placeholders (the ``L``
+    of a backend that carries ``W``) are kept."""
+    def take(v):
+        if isinstance(v, torch.Tensor):
+            return v[idx] if v.ndim and v.numel() else v
+        if isinstance(v, tuple):
+            return tuple(take(u) for u in v)
+        if dataclasses.is_dataclass(v):
+            return take_lanes(v, idx)
+        return v
+    return type(obj)(**{f.name: take(getattr(obj, f.name))
+                        for f in dataclasses.fields(obj)})
+
+
+def put_lanes(st: IPMState, idx: torch.Tensor, sub: IPMState) -> IPMState:
+    """``st`` with lanes ``idx`` replaced by the lanes of ``sub``."""
+    out = {}
+    for f in dataclasses.fields(st):
+        a = getattr(st, f.name).clone()
+        a[idx] = getattr(sub, f.name)
+        out[f.name] = a
+    return IPMState(**out)
+
+
 def select_lanes(active: torch.Tensor, new: IPMState,
                  old: IPMState) -> IPMState:
     """Per-lane select: fields of ``new`` where ``active`` (B,), else

@@ -84,9 +84,34 @@ def mv_wide(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mv64(a, x).to(x.dtype)
 
 
+# the groups of :func:`lane_sum`'s first level on the card: torch's CUDA
+# reduction gives each row one warp once it has at least 16 rows to reduce,
+# and spreads a row over more threads below that (measured on the H100:
+# one sum's bits at widths 1-15 differ from the whole batch's, at 16-255
+# they agree)
+LANE_GROUPS = 16
+
+
+def lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension ``(..., k) -> (...)``, each lane's sum in
+    an order that does not hang on the number of lanes, so that the lanes
+    of a narrowed batch (``ipm.batched.run_batch``) get the bits they get
+    in the whole batch.  On the card in two levels: ``LANE_GROUPS``
+    contiguous parts of k (zero padded), then their partial sums; on the
+    CPU, whose reduction already sums a row alike at any count of rows, one
+    sum."""
+    if not v.is_cuda:
+        return v.sum(-1)
+    k = v.shape[-1]
+    if k % LANE_GROUPS:
+        v = torch.nn.functional.pad(v, (0, -k % LANE_GROUPS))
+    return v.reshape(*v.shape[:-1], LANE_GROUPS, -1).sum(-1).sum(-1)
+
+
 def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Per-instance dot product ``(B, k), (B, k) -> (B,)``."""
-    return (x * y).sum(dim=-1)
+    """Per-instance dot product ``(B, k), (B, k) -> (B,)``, summed by
+    :func:`lane_sum`."""
+    return lane_sum(x * y)
 
 
 def inf_norm(v: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,11 @@ torch.set_num_threads(1)
 
 OPTS = ipx_torch.SolverOptions(dtype="float32")
 
-# span -> the span it sits in, in a solve_batch that rescues nothing
+# span -> the span it sits in, in a solve_batch that rescues nothing (its
+# lanes end apart, so the loop narrows)
 PARENT = {"api.call": None, "api.prepare": "api.call",
           "ipm.start": "api.call", "ipm.step": "api.call",
+          "ipm.compact": "api.call",
           "api.rescue": "api.call", "api.recheck": "api.call",
           "api.recheck.device": "api.recheck",
           "api.recheck.to_host": "api.recheck",
@@ -34,14 +36,15 @@ def _solve(lps):
 
 def test_solve_batch_spans_nest(monkeypatch):
     """The spans of one call nest as documented, all under one
-    ``api.call``; one ``ipm.step`` a step of the loop; self seconds are
-    the duration less the children's."""
-    steps = []
+    ``api.call``; one ``ipm.step`` a step of the loop, one ``ipm.compact``
+    a narrowing, the counters as the widths stepped; self seconds are the
+    duration less the children's."""
+    steps = []          # the width of each step
     step = mehrotra.mehrotra_step
 
-    def counted(*a, **kw):
-        steps.append(1)
-        return step(*a, **kw)
+    def counted(lp, state, *a, **kw):
+        steps.append(state.x.shape[0])
+        return step(lp, state, *a, **kw)
     monkeypatch.setattr(mehrotra, "mehrotra_step", counted)
     with obs.tracing() as t:
         sols = _solve(_lps())
@@ -56,9 +59,13 @@ def test_solve_batch_spans_nest(monkeypatch):
     summ = t.summary()
     assert summ["calls"] == 1
     assert summ["spans"]["ipm.step"]["calls"] == len(steps) > 0
+    shrinks = sum(a != b for a, b in zip(steps, steps[1:]))
+    assert summ["spans"]["ipm.compact"]["calls"] == shrinks > 0
     assert summ["counters"] == {"api.rescue.lanes_in": 0,
                                 "api.rescue.near_miss_in": 0,
-                                "api.recheck.lanes_checked": 3}
+                                "api.recheck.lanes_checked": 3,
+                                "ipm.compact.shrinks": shrinks,
+                                "ipm.lane_steps": sum(steps)}
     for i, r in enumerate(t.spans):
         kids = sum(c.end_ns - c.start_ns for c in t.spans if c.parent == i)
         assert r.child_ns == kids
@@ -107,7 +114,8 @@ def test_off_records_nothing_and_on_keeps_the_bits(monkeypatch):
     with obs.tracing() as t:
         on = _solve(lps)
     dev = [r for r in t.spans
-           if r.name in ("ipm.start", "ipm.step", "api.recheck.device")]
+           if r.name in ("ipm.start", "ipm.step", "ipm.compact",
+                         "api.recheck.device")]
     assert _Event.made == 2 * len(dev) and not rfs
     assert all(r.device_s == 2e-3 and r.events is None for r in dev)
     spans = t.summary()["spans"]
