@@ -78,7 +78,7 @@ from ipx_torch.kernels import _build
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
 from ipx_torch import mesh as meshlib
-from ipx_torch.linsys import augmented, normal_eq, schur
+from ipx_torch.linsys import augmented, normal_eq, products, schur
 from ipx_torch.numerics import dtype_of
 from ipx_torch.problem.generate import (lp_from_optimum,
                                         random_feasible_large_device,
@@ -616,7 +616,7 @@ def _oversize_rows() -> str | None:
     went wrong, or None."""
     m, n = 1 << 15, 64
     A, v, w, _, _ = _inputs(1, torch.bfloat16, seed=10, m=m, n=n)
-    if not normal_eq.use_fused_matvec(slice_options(), A):
+    if not products.use_fused_matvec(slice_options(), A):
         return f"m={m} leaves the fused route"
     before = dict(fk.LAUNCHES)
     try:
@@ -2758,23 +2758,23 @@ class SplitTimer:
     each one's seconds, synchronised before and after: the Jacobi diagonal
     (row 2's squared stream), the assembly (row 4), the factor (row 10 with
     the diagonal kernel), the preconditioner's solves (W-substitutions) and
-    the products with A (rows 2 and 3, rounded to float32 on
-    ``"sharded"``, float64 out on ``"sharded_schur"`` and the re-check).
-    What is left of the solve's seconds is the elementwise work, the
-    collectives and the host.  A piece missing from its module raises on
-    entry, and :meth:`never_called` names the pieces a run's stages must
-    have called and did not, so a renamed piece cannot report zero seconds.
+    the products with A (``products.product``: rows 2 and 3, rounded to
+    float32 on ``"sharded"``, float64 out on ``"sharded_schur"`` and the
+    re-check, whose seconds are ``products_f64``).  What is left of the
+    solve's seconds is the elementwise work, the collectives and the host.
+    A piece missing from its module raises on entry, and
+    :meth:`never_called` names the pieces a run's stages must have called
+    and did not, so a renamed piece cannot report zero seconds.
     ``library_products`` counts the library products with A the route
-    falls back to off the card (``schur.mv``, ``schur.mv64``): none on the
-    card."""
+    falls back to off the card (``products.mv``, ``products.mv64``): none
+    on the card."""
 
     PIECES = {"jacobi": (schur, "_diag_scan"),
               "assembly": (pk, "assemble_sym_batched"),
               "factor": (pk, "factor_lt_batched"),
               "solves": (schur, "_precond"),
-              "products": (schur, "_prod"),
-              "products_f64": (schur, "_prod64")}
-    LIBRARY = ((schur, "mv"), (schur, "mv64"))
+              "products": (products, "product")}
+    LIBRARY = ((products, "mv"), (products, "mv64"))
     # the pieces each stage's route calls
     ROUTE = {"sharded": ("jacobi", "assembly", "factor", "solves",
                          "products"),
@@ -2782,8 +2782,8 @@ class SplitTimer:
                                "products_f64")}
 
     def __enter__(self):
-        self.seconds = dict.fromkeys(self.PIECES, 0.0)
-        self.calls = dict.fromkeys(self.PIECES, 0)
+        self.seconds = dict.fromkeys([*self.PIECES, "products_f64"], 0.0)
+        self.calls = dict.fromkeys(self.seconds, 0)
         self.library_products = 0
         self._lib = {}
         for mod, name in self.LIBRARY:
@@ -2804,6 +2804,8 @@ class SplitTimer:
                 t0 = time.perf_counter()
                 out = _fn(*a, **kw)
                 torch.cuda.synchronize()
+                if _label == "products" and out.dtype == torch.float64:
+                    _label = "products_f64"
                 self.seconds[_label] += time.perf_counter() - t0
                 self.calls[_label] += 1
                 return out

@@ -13,6 +13,7 @@ from ipx_torch import obs
 from ipx_torch.ipm import batched, mehrotra
 from ipx_torch.ipm.state import (IPMState, put_lanes, select_lanes,
                                  take_lanes)
+from ipx_torch.linsys import products, schur
 from ipx_torch.numerics import dtype_of, inf_norm
 from ipx_torch.options import DEFAULT_OPTIONS, SolverOptions, check_ported
 from ipx_torch.problem.batching import bucket_lps
@@ -123,22 +124,16 @@ def _solutions(lp: LP, st: IPMState, fwd, tr) -> list:
 
 
 def _states_to_solutions(lp: LP, st: IPMState) -> list:
-    """The Solutions of the routes without a mesh (:func:`_solutions`):
-    the products are ``schur._prod64``'s, rows 2 and 3 on the card for an
-    A stored f32 or bf16 (f64 sums, no copy of A), else ``numerics.mv64``
-    (an A stored f64 as it is; another A through an f64 copy made a block
-    of rows at a time, at most ``numerics.COPY_BYTES``)."""
-    from ipx_torch.linsys import schur
+    """The Solutions of the routes without a mesh (:func:`_solutions`),
+    the products summed in float64 (``linsys.products``)."""
     A = lp.A.contiguous()       # rows 2 and 3 read A as stored, row-major
-    return _solutions(lp, st, lambda w: schur._prod64(A, w, False),
-                      lambda v: schur._prod64(A, v, True))
+    return _solutions(lp, st, *products.pair(A, "f64"))
 
 
 def _sharded_solutions(lp: LP, st: IPMState) -> list:
     """The Solutions of the sharded routes (:func:`_solutions`), one a lane,
     the same on every rank of a row group: the products are the ranks'
     (``schur.matvecs(wide=True)``: f64 sums through the all-reduce)."""
-    from ipx_torch.linsys import schur
     return _solutions(lp, st, *schur.matvecs(lp.A, wide=True))
 
 
@@ -327,7 +322,6 @@ def _solve_row_sharded(lps, opts: SolverOptions, device, mesh,
     """:func:`solve_batch` of this rank's share on the sharded route of a
     mesh with p row shards (its column blocks made contiguous once: the
     products and the assembly read them every step)."""
-    from ipx_torch.linsys import schur
     opts = _sharded_route(opts)
     blp = _prepare(lps, opts, device, p=p)
     blp = LP(c=blp.c, A=blp.A.contiguous(), b=blp.b,
@@ -810,7 +804,6 @@ def solve_large(c, A=None, b=None, mesh=None,
     from the iterate.
     """
     from ipx_torch import mesh as meshlib
-    from ipx_torch.linsys import schur
 
     opts = _sharded_route(options or DEFAULT_OPTIONS)
     if mesh is None:

@@ -20,8 +20,8 @@ import torch
 
 from ipx_torch.ipm.state import IPMState, init_state, select_lanes
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import augmented, normal_eq, schur
-from ipx_torch.numerics import inf_norm, lane_sum, mv, vdot
+from ipx_torch.linsys import augmented, normal_eq, products, schur
+from ipx_torch.numerics import inf_norm, lane_sum, vdot
 from ipx_torch.options import SolverOptions
 from ipx_torch.problem.lp import LP
 from ipx_torch.status import Status
@@ -57,32 +57,6 @@ def _col(a: torch.Tensor) -> torch.Tensor:
     return a.unsqueeze(-1)
 
 
-def _matvecs(A: torch.Tensor, opts: SolverOptions):
-    """(w -> A @ w, v -> A^T @ v) on the route the options select: the fused
-    kernels, or library products, summed in float64 on the augmented routes
-    and ``"sharded_schur"`` (their endgame is measured by these residuals:
-    with one-chain float32 sums the CPU's batches of degenerate LPs lose
-    lanes there).  On the sharded routes A is this rank's column block and
-    the products go through the ranks (``schur.matvecs``); the augmented
-    routes' are ``augmented._products``.  On the card the sharded and
-    augmented routes' products are rows 2 and 3
-    (``schur.use_row_kernels``), and so are the dense route's under
-    ``matvec_backend="xla"`` (``normal_eq.use_row_matvec``).  A bf16-stored
-    A cannot meet an f32 vector in a library matmul: the kernels upcast it
-    in registers, ``mv`` makes a transient copy, a block of rows at a
-    time."""
-    if normal_eq.use_fused_matvec(opts, A):
-        return (lambda w: fk.a_matvec(A, w)), (lambda v: fk.at_matvec(A, v))
-    if normal_eq.use_row_matvec(opts, A):
-        return ((lambda w: fk.a_matvec(A, w.contiguous())),
-                (lambda v: fk.at_matvec(A, v.contiguous())))
-    if opts.linsys.startswith("sharded"):
-        return schur.matvecs(A, wide=opts.linsys == "sharded_schur")
-    if opts.linsys.startswith("augmented"):
-        return augmented._products(A, opts)
-    return (lambda w: mv(A, w)), (lambda v: mv(A.mT, v))
-
-
 def feas_tolerance(opts: SolverOptions, dtype: torch.dtype) -> float:
     """The feasibility tolerance of the convergence test: ``tol_feas``,
     floored at the dtype's representation limit (an exactly feasible x
@@ -109,7 +83,7 @@ def starting_point(lp: LP, opts: SolverOptions):
     """
     A, b, c = lp.A, lp.b, lp.c
     fac = normal_eq.factor(A, torch.ones_like(c), opts)
-    fwd, tr = _matvecs(A, opts)
+    fwd, tr = normal_eq.matvecs(A, opts)
     x = tr(normal_eq.solve(fac, A, b, opts))
     y = normal_eq.solve(fac, A, fwd(c), opts)
     s = c - tr(y)
@@ -140,13 +114,13 @@ def _scalars(lp: LP, x, y, s, opts: SolverOptions):
     rp, rd <= tol_feas.
     """
     n = lp.n
-    if normal_eq.use_fused_matvec(opts, lp.A):
+    if products.use_fused_matvec(opts, lp.A):
         # A@x and A^T y are an independent pair: one A stream
         ax, aty = fk.ata_apply(lp.A, y, None, x)
         rp = ax - lp.b
         rd = aty + s - lp.c
     else:
-        fwd, tr = _matvecs(lp.A, opts)
+        fwd, tr = normal_eq.matvecs(lp.A, opts)
         rp = fwd(x) - lp.b
         rd = tr(y) + s - lp.c
     mu = vdot(x, s) / n
@@ -188,7 +162,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     x, y, s = state.x, state.y, state.s
     dtype = x.dtype
     n = lp.n
-    fuse = normal_eq.use_fused_matvec(opts, A)
+    fuse = products.use_fused_matvec(opts, A)
 
     # Residuals are CARRIED: the previous step's exit measured them on this
     # exact iterate (refresh_residuals seeds the first iteration).
@@ -221,7 +195,7 @@ def mehrotra_step(lp: LP, state: IPMState, opts: SolverOptions,
     ref_opts = (opts if opts.refine_solve_cg < 0
                 else opts.replace(refine_steps=opts.refine_solve_cg))
 
-    a_mv, at_mv = _matvecs(A, opts)
+    a_mv, at_mv = normal_eq.matvecs(A, opts)
 
     def newton_direction(e_p, e_d, e_xs, sopts=opts):
         """Solve  A dx = -e_p;  A^T dy + ds = -e_d;  S dx + X ds = -e_xs

@@ -29,10 +29,8 @@ H^-1 = x / (s + reg_p x) is capped at 1/reg_p, so the reduced matrix never
 conditions like the raw x/s normal equations.  Every tensor has a leading
 batch dimension; ``reg_scale`` is a per-lane (B,) tensor or a float.  The
 products with A are summed in float64 and rounded once, as are the
-residuals ``ipm.mehrotra`` measures on these routes: on the card rows 2 and
-3 (``kernels.fused.a_matvec`` / ``at_matvec``, ``schur.use_row_kernels``),
-on the CPU library products (``numerics.mv_wide``, a float64 copy of A); on
-``"sharded_schur"`` through the all-reduce (``schur.matvecs``).
+residuals ``ipm.mehrotra`` measures on these routes (``normal_eq.matvecs``;
+``linsys.products`` gives the rule).
 """
 from __future__ import annotations
 
@@ -40,23 +38,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import normal_eq, schur
+from ipx_torch.linsys import normal_eq
 from ipx_torch.linsys.normal_eq import NormalEqFactor
-from ipx_torch.numerics import mv_wide
 from ipx_torch.options import SolverOptions
-
-
-def _products(A: torch.Tensor, opts: SolverOptions):
-    """(w -> A w, v -> A^T v) summed in float64 and rounded once: through
-    the ranks on ``"sharded_schur"``, rows 2 and 3 on the card, else
-    library products."""
-    if opts.linsys == "sharded_schur":
-        return schur.matvecs(A, wide=True)
-    if schur.use_row_kernels(opts.linsys, A.dtype, A.device):
-        return ((lambda w: fk.a_matvec(A, w.contiguous())),
-                (lambda v: fk.at_matvec(A, v.contiguous())))
-    return (lambda w: mv_wide(A, w)), (lambda v: mv_wide(A.mT, v))
 
 
 @dataclass(frozen=True)
@@ -97,7 +81,7 @@ def factor(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
 
 def _apply_unreg(A, d2, dx, dy, opts: SolverOptions):
     """The true (unregularized) augmented operator applied to (dx, dy)."""
-    fwd, tr = _products(A, opts)
+    fwd, tr = normal_eq.matvecs(A, opts)
     tiny = torch.finfo(d2.dtype).tiny
     inv_d2 = 1.0 / torch.clamp(d2, min=tiny)
     return -inv_d2 * dx + tr(dy), fwd(dx)
@@ -183,7 +167,7 @@ def factor_schur(A: torch.Tensor, d2: torch.Tensor, opts: SolverOptions,
 def _schur_apply(fac: AugSchurFactor, A, r1, r2, opts: SolverOptions):
     """One pass through the reduced system for the right-hand side
     (r1, r2)."""
-    fwd, tr = _products(A, opts)
+    fwd, tr = normal_eq.matvecs(A, opts)
     dy = normal_eq.solve(fac.ne, A, r2 + fwd(fac.d2p * r1),
                          _inner_opts(opts))
     return fac.d2p * (tr(dy) - r1), dy

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import schur
+from ipx_torch.linsys import products, schur
 from ipx_torch.numerics import mm, mv, vdot
 from ipx_torch.options import SolverOptions
 
@@ -369,29 +369,16 @@ def _invert_lower_blocks(blocks: torch.Tensor, base: int = 32) -> torch.Tensor:
     return torch.cat([top, torch.cat([off, iC], dim=2)], dim=1)
 
 
-def use_fused_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
-    """Whether A's products go through ``kernels.fused``: asked for by
-    ``matvec_backend``, A stored f32 or bf16, dense route.  The shape plays
-    no part: an A on the card whose rows the kernels cannot hold is refused
-    by their wrapper, never handed to library matmuls instead."""
-    if opts.matvec_backend != "fused":
-        return False
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        return False
-    return opts.linsys == "dense"
-
-
-def use_row_matvec(opts: SolverOptions, A: torch.Tensor) -> bool:
-    """Whether the dense route's separate products A w and A^T v under
-    ``matvec_backend="xla"`` go through rows 2 and 3
-    (``kernels.fused.a_matvec`` / ``at_matvec``: float64 sums rounded once,
-    no copy of A): for an A stored f32 or bf16 on a CUDA device.  The
-    library's float32 products leave the iterate's dual residual near 1e-6
-    of its scale, against a tolerance of 1.9e-6, and stage 1 then crawls
-    with short steps; summed in float64 it sits near 1e-7 (PERF.md,
-    ``dense_lp.single``).  On the CPU the library products stay."""
-    return (opts.linsys == "dense" and opts.matvec_backend == "xla"
-            and A.is_cuda and A.dtype in (torch.float32, torch.bfloat16))
+def matvecs(A: torch.Tensor, opts: SolverOptions):
+    """(w -> A w, v -> A^T v) on the route ``opts.linsys``: through the
+    ranks on the sharded routes (``schur.matvecs``), else this A's pair
+    (``linsys.products``, which holds the rule), summed wide on the
+    augmented routes."""
+    if opts.linsys.startswith("sharded"):
+        return schur.matvecs(A, wide=opts.linsys == "sharded_schur")
+    return products.pair(
+        A, "wide" if opts.linsys.startswith("augmented") else "working",
+        products.use_fused_matvec(opts, A))
 
 
 def _chol_solve(fac: NormalEqFactor, rhs: torch.Tensor) -> torch.Tensor:
@@ -435,17 +422,15 @@ def solve(fac: NormalEqFactor, A: torch.Tensor, rhs: torch.Tensor,
         return _augmented().normal_solve_schur(fac, A, rhs, opts)
     tiny = torch.finfo(rhs.dtype).tiny
 
-    if use_fused_matvec(opts, A):
+    if products.use_fused_matvec(opts, A):
         def op_true(v):
             # one A stream: stripe-fused A (d2 (A^T v))
             return fk.ata_apply(A, v, fac.d2, None)[0]
-    elif use_row_matvec(opts, A):
-        def op_true(v):
-            u = fac.d2 * fk.at_matvec(A, v.contiguous())
-            return fk.a_matvec(A, u.contiguous())
     else:
+        fwd, tr = products.pair(A)
+
         def op_true(v):
-            return mv(A, fac.d2 * mv(A.mT, v))
+            return fwd(fac.d2 * tr(v))
 
     if opts.cg_operator == "assembled":
         def op(v):

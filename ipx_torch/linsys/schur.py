@@ -5,9 +5,8 @@ the mesh's "row" axis).
   * A is held by COLUMNS: rank i of the mesh's "row" axis holds the column
     block A_i (B, m, n/p) of every lane; every n-vector (x, s, c, d2) is
     whole on every rank.  A.w is each rank's A_i w_i, all-reduced; A^T v is
-    each rank's A_i^T v, all-gathered (:func:`matvecs`).  On the card the
-    local products are rows 2 and 3 (``kernels.fused.a_matvec`` /
-    ``at_matvec``: float64 sums, no copy of A; :func:`use_row_kernels`).
+    each rank's A_i^T v, all-gathered (:func:`matvecs`), each rank's own
+    product being the one ``linsys.products`` decides.
   * Each rank assembles its partial  (A_i o d2_i) A_i^T  (the assembly kernel
     on the card), lanes in chunks of at most ``COPY_BYTES``, and a
     reduce-scatter per lane leaves it the sum's ROW PANEL (m/p rows); the
@@ -50,8 +49,9 @@ import torch.distributed as dist
 
 from ipx_torch.kernels import cholesky as pk
 from ipx_torch.kernels import fused as fk
+from ipx_torch.linsys import products
 from ipx_torch.mesh import ROW_AXIS, Mesh
-from ipx_torch.numerics import COPY_BYTES, mv, mv64
+from ipx_torch.numerics import COPY_BYTES
 from ipx_torch.options import SolverOptions
 
 _ACTIVE_MESH: contextvars.ContextVar = contextvars.ContextVar(
@@ -191,72 +191,24 @@ def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x * y).sum(dim=-1)
 
 
-_ROW_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def use_row_kernels(linsys: str, dtype: torch.dtype, device) -> bool:
-    """Whether the products A w and A^T v of ``linsys`` go through rows 2
-    and 3 (``kernels.fused.a_matvec`` / ``at_matvec``: float64 sums rounded
-    once, no copy of A) for an A stored in ``dtype`` on ``device``: on the
-    sharded routes (``"sharded"``, ``"sharded_schur"``: :func:`matvecs`, the
-    Jacobi diagonal, ``api.solve_large``'s float64 re-check) and the
-    augmented ones (``"augmented"``, ``"augmented_schur"``), for an A stored
-    float32 or bfloat16 on a CUDA device.  The dense route takes rows 1-3
-    under ``matvec_backend="fused"`` (``normal_eq.use_fused_matvec``) and
-    rows 2 and 3 under ``"xla"`` (``normal_eq.use_row_matvec``).  On the
-    CPU, and for an A stored float64, every route keeps its library product
-    (``numerics.mv``, ``mv64``, ``mv_wide``) bit for bit."""
-    return (linsys != "dense" and torch.device(device).type == "cuda"
-            and dtype in _ROW_DTYPES)
-
-
-def _on_rows(A: torch.Tensor) -> bool:
-    return use_row_kernels("sharded", A.dtype, A.device)
-
-
-def _prod(A: torch.Tensor, x: torch.Tensor, tr: bool) -> torch.Tensor:
-    """A x (``tr``: A^T x) per lane in x's dtype: rows 2 and 3 on the card
-    (float64 sums rounded once), else one library product (float32 sums
-    for a float32 x, a float32 copy of a bf16 A a block of rows at a
-    time)."""
-    if _on_rows(A):
-        x = x.contiguous()
-        return fk.at_matvec(A, x) if tr else fk.a_matvec(A, x)
-    return mv(A.mT if tr else A, x)
-
-
-def _prod64(A: torch.Tensor, x: torch.Tensor, tr: bool) -> torch.Tensor:
-    """:func:`_prod` summed in float64 and returned in float64.  Rows 2 and 3
-    take float32 vectors: a float64 x is rounded to float32 first, which is
-    exact for the iterates of a float32 solve, the only solve that holds an
-    A stored float32 or bf16 (an A of a float64 solve is stored float64 and
-    takes ``numerics.mv64``)."""
-    if _on_rows(A):
-        x = x.to(torch.float32).contiguous()
-        f64 = torch.float64
-        return (fk.at_matvec(A, x, out_dtype=f64) if tr
-                else fk.a_matvec(A, x, out_dtype=f64))
-    return mv64(A.mT if tr else A, x)
-
-
 def matvecs(A: torch.Tensor, wide: bool = False):
     """(w -> A w, v -> A^T v) for the LPs whose column blocks ``A`` (B, m,
     n/p) this rank holds, every vector whole on every rank: the local
-    product (:func:`_prod`), then an all-reduce (an m-vector) or an
+    product (``linsys.products``), then an all-reduce (an m-vector) or an
     all-gather (an n-vector).  ``wide`` keeps the local sums in float64
     (``"sharded_schur"``, as the augmented routes sum) through the
     all-reduce, and rounds once."""
     row = _row()
     nl = A.shape[-1]
     lo = row.i * nl
-    prod = _prod64 if wide else _prod
+    loc_fwd, loc_tr = products.pair(A, "f64" if wide else "working")
 
     def fwd(w):
-        y = prod(A, w[..., lo:lo + nl], False)
+        y = loc_fwd(w[..., lo:lo + nl])
         return _all_reduce(y, row).to(w.dtype)
 
     def tr(v):
-        return _all_gather_rows(prod(A, v, True).to(v.dtype), row)
+        return _all_gather_rows(loc_tr(v).to(v.dtype), row)
 
     return fwd, tr
 
@@ -287,7 +239,7 @@ def _diag_scan(A_loc: torch.Tensor, d2_loc: torch.Tensor) -> torch.Tensor:
     """(A_loc o A_loc) d2_loc per lane, (B, m), in d2's dtype: row 2's
     squared stream on the card (float64 sums rounded once), else library
     products a block of A's columns at a time (no (B, m, n) temporary)."""
-    if _on_rows(A_loc):
+    if products.on_card(A_loc):
         return fk.a_matvec(A_loc, d2_loc.contiguous(), square=True)
     B, m, nl = A_loc.shape
     dt = d2_loc.dtype

@@ -9,8 +9,9 @@ and c are formed, or float32 with ``--f32``), then times one call of each
 piece of a ``linsys="sharded"`` iteration at p = 1 (CUDA events): the Jacobi
 diagonal, the assembly (row 4), the factor (row 10 with the diagonal
 kernel), one preconditioner apply (the W-substitutions), one product A w and
-A^T v rounded to float32 and in float64 (the route's, ``schur._prod`` and
-``_prod64``: rows 2 and 3 on the card), the same products through the
+A^T v rounded to float32 and in float64 (the route's, ``products.pair``
+with sums ``"working"`` and ``"f64"``: rows 2 and 3 on the card), the same
+products through the
 library route they replaced (a float32 or float64 copy of A a block of rows
 at a time, then a library product: ``numerics.mv``, ``mv64``), and then
 ``solve_large`` capped at ``--iters`` iterations with the endgame off, its
@@ -35,7 +36,7 @@ from ipx_torch.devinfo import nvidia_smi_line, time_ms  # noqa: E402
 from ipx_torch.kernels import _build  # noqa: E402
 from ipx_torch.kernels import cholesky as pk  # noqa: E402
 from ipx_torch.kernels import fused as fk  # noqa: E402
-from ipx_torch.linsys import schur  # noqa: E402
+from ipx_torch.linsys import products, schur  # noqa: E402
 from ipx_torch.numerics import mv, mv64  # noqa: E402
 from ipx_torch.problem.generate import random_feasible_large_device  # noqa: E402
 
@@ -84,9 +85,10 @@ def main() -> int:
         out["precond_ms"] = time_ms(lambda: schur._precond(fac, v, row),
                                     reps=3, warm=1)
         del fac, LT, W
-        for tag, fn in (("", schur._prod), ("_f64", schur._prod64)):
-            out[f"a_w{tag}_ms"] = time_ms(lambda: fn(A, w, False))
-            out[f"at_v{tag}_ms"] = time_ms(lambda: fn(A, v, True))
+        for tag, sums in (("", "working"), ("_f64", "f64")):
+            fwd, tr = products.pair(A, sums)
+            out[f"a_w{tag}_ms"] = time_ms(lambda: fwd(w))
+            out[f"at_v{tag}_ms"] = time_ms(lambda: tr(v))
         for tag, fn in (("", mv), ("_f64", mv64)):
             out[f"library_a_w{tag}_ms"] = time_ms(lambda: fn(A, w), reps=3,
                                                   warm=1)

@@ -18,7 +18,7 @@ STALLED) of the contract shape (m=1024, n=2048, A stored bf16, seed 0):
   products with A one Mehrotra step makes (counted with the row kernels'
   wrappers wrapped; the squared stream of the reduced factor's Jacobi scale
   not counted), the step's time on rows 2 and 3 and with the route forced
-  back to ``mv_wide`` (``schur.use_row_kernels`` patched), and the
+  back to ``mv_wide`` (``products.on_card`` patched), and the
   products' share of each.
 
 Prints one JSON line, the card's name and power limit in it.
@@ -38,7 +38,7 @@ from ipx_torch import numerics                            # noqa: E402
 from ipx_torch.devinfo import nvidia_smi_line, time_ms    # noqa: E402
 from ipx_torch.ipm import batched, mehrotra               # noqa: E402
 from ipx_torch.kernels import fused as fk                 # noqa: E402
-from ipx_torch.linsys import schur                        # noqa: E402
+from ipx_torch.linsys import products                     # noqa: E402
 from ipx_torch.problem.generate import random_feasible_batch_device  # noqa
 
 M, N = 1024, 2048
@@ -72,14 +72,14 @@ def main() -> int:
     ref_fwd = torch.matmul(A64, w.double().unsqueeze(-1)).squeeze(-1)
     ref_tr = torch.matmul(A64.mT, v.double().unsqueeze(-1)).squeeze(-1)
     del A64
-    products = {
+    ways = {
         "mv": (lambda: numerics.mv(A, w), lambda: numerics.mv(A.mT, v)),
         "mv_wide": (lambda: numerics.mv_wide(A, w),
                     lambda: numerics.mv_wide(A.mT, v)),
         "kernels": (lambda: fk.a_matvec(A, w), lambda: fk.at_matvec(A, v)),
     }
     out = {}
-    for name, (fwd, tr) in products.items():
+    for name, (fwd, tr) in ways.items():
         out[name] = {"a_w_ms": time_ms(fwd, reps=20, warm=3),
                      "at_v_ms": time_ms(tr, reps=20, warm=3),
                      "a_w_rel_err": _rel(fwd(), ref_fwd),
@@ -112,12 +112,12 @@ def main() -> int:
         fk.a_matvec, fk.at_matvec = a_mv, at_mv
     step = lambda: mehrotra.mehrotra_step(lp, st, opts, fac_aat)  # noqa
     step_ms = time_ms(step, reps=3, warm=1)
-    use_rows = schur.use_row_kernels
-    schur.use_row_kernels = lambda linsys, dtype, device: False
+    on_card = products.on_card
+    products.on_card = lambda A_: False
     try:
         library_step_ms = time_ms(step, reps=3, warm=1)
     finally:
-        schur.use_row_kernels = use_rows
+        products.on_card = on_card
     wide = (out["mv_wide"]["a_w_ms"] + out["mv_wide"]["at_v_ms"]) / 2
     kern = (out["kernels"]["a_w_ms"] + out["kernels"]["at_v_ms"]) / 2
     out["schur_step"] = {

@@ -250,17 +250,17 @@ def test_oversize_rows_stay_on_the_fused_route_and_are_refused(dtype):
     stripe caps m) refuses it before any device call instead of handing it
     to library matmuls; rows 2 and 3 stream rows, keep nothing of A in
     shared memory and have a tiling for it."""
-    from ipx_torch.linsys import normal_eq
+    from ipx_torch.linsys import products
     m, n = 1 << 15, 8
     big = torch.zeros(1, m, n, dtype=dtype)
     isz = big.element_size()
     assert tfk.stripe_cols(m, isz) is None
     fused = ipx_torch.SolverOptions.throughput(
         chol_backend="xla", augmented_fallback=False)
-    assert normal_eq.use_fused_matvec(fused, big)
-    assert not normal_eq.use_fused_matvec(
+    assert products.use_fused_matvec(fused, big)
+    assert not products.use_fused_matvec(
         fused.replace(matvec_backend="xla"), big)
-    assert not normal_eq.use_fused_matvec(fused, big.double())
+    assert not products.use_fused_matvec(fused, big.double())
     before = dict(tfk.LAUNCHES)
     with pytest.raises(ValueError, match="do not fit"):
         tfk._stripe_width(big)

@@ -17,6 +17,7 @@ import ipx
 import ipx_torch
 from ipx.linsys import normal_eq as jne
 from ipx_torch.linsys import normal_eq as tne
+from ipx_torch.linsys import products
 
 torch.set_num_threads(1)
 
@@ -119,7 +120,7 @@ def test_reg_scale_is_per_lane():
 def test_use_fused_matvec_gate():
     A32 = torch.zeros(1, 64, 128)
     fused = ipx_torch.SolverOptions(matvec_backend="fused")
-    assert tne.use_fused_matvec(fused, A32)
-    assert tne.use_fused_matvec(fused, A32.to(torch.bfloat16))
-    assert not tne.use_fused_matvec(fused, A32.double())
-    assert not tne.use_fused_matvec(ipx_torch.SolverOptions(), A32)
+    assert products.use_fused_matvec(fused, A32)
+    assert products.use_fused_matvec(fused, A32.to(torch.bfloat16))
+    assert not products.use_fused_matvec(fused, A32.double())
+    assert not products.use_fused_matvec(ipx_torch.SolverOptions(), A32)

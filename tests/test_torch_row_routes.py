@@ -1,17 +1,15 @@
 """Which products with A go through rows 2 and 3 (``kernels.fused.a_matvec``
 / ``at_matvec``) and which stay library products, route by route.
 
-``schur.use_row_kernels`` decides: the sharded and augmented routes on a
-CUDA device with A stored float32 or bf16; ``normal_eq.use_row_matvec``
-for the dense route under ``matvec_backend="xla"``.  On the CPU every route
-keeps the library product it had, bit for bit (``numerics.mv``, ``mv64``,
-``mv_wide``).  Where the decision says so, each of the routes' product
-sites calls the row kernels' wrappers: checked here on the CPU with the
-decision forced and the wrappers recorded (their plain versions then run).
-No JAX, no GPU.
+``linsys.products`` decides: on a CUDA device with A stored float32 or
+bf16 every route's products, and the re-check's, take rows 2 and 3, the
+fused route's take the kernels' wrappers on either device, and on the CPU
+every other route keeps the library product it had, bit for bit
+(``numerics.mv``, ``mv64``, ``mv_wide``).  Where the decision says so, each
+of the routes' product sites calls the row kernels' wrappers: checked here
+on the CPU with the card test forced and the wrappers recorded (their plain
+versions then run).  No JAX, no GPU.
 """
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 import torch
@@ -20,9 +18,8 @@ import ipx_torch
 from ipx_torch import api
 from ipx_torch import mesh as meshlib
 from ipx_torch import numerics
-from ipx_torch.ipm import mehrotra
 from ipx_torch.kernels import fused as fk
-from ipx_torch.linsys import augmented, normal_eq, schur
+from ipx_torch.linsys import augmented, normal_eq, products, schur
 from ipx_torch.options import LINSYS_CHOICES
 from ipx_torch.problem.generate import random_feasible_lp
 
@@ -36,35 +33,88 @@ def test_linsys_choices_are_the_routes_decided_here():
     assert set(LINSYS_CHOICES) == {"dense", *ROUTES_ON_ROWS}
 
 
-@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
+class _StoredA:
+    """An A as the decision sees it, on any device: where it lives, how it
+    is stored, its shape (B=1, m=2, n=3)."""
+
+    shape = (1, 2, 3)
+
+    def __init__(self, device, dtype):
+        self.device, self.dtype = torch.device(device), dtype
+
+    @property
+    def mT(self):
+        return self
+
+
+def _recorded(monkeypatch):
+    """Every product the decision can pick, patched to record its kind and
+    return zeros of the right shape: ``("rows", out_dtype)`` for the
+    kernels' wrappers, ``(name, None)`` for the library products."""
+    calls = []
+
+    def kernel(length):
+        def rec(A, x, square=False, out_dtype=F32):
+            calls.append(("rows", out_dtype))
+            return torch.zeros(1, length, dtype=out_dtype)
+        return rec
+
+    def library(name):
+        def rec(A, x):
+            calls.append((name, None))
+            dt = F64 if name == "mv64" else x.dtype
+            return torch.zeros(1, 5 - x.shape[-1], dtype=dt)
+        return rec
+
+    monkeypatch.setattr(fk, "a_matvec", kernel(2))
+    monkeypatch.setattr(fk, "at_matvec", kernel(3))
+    for name in ("mv", "mv_wide", "mv64"):
+        monkeypatch.setattr(products, name, library(name))
+    return calls
+
+
+# each route under each matvec_backend, and this A's pair at each sums
+USES = ([f"{r}/{b}" for r in sorted(LINSYS_CHOICES) for b in ("xla", "fused")]
+        + [f"sums/{s}" for s in ("working", "wide", "f64")])
+
+
+@pytest.mark.parametrize("use", USES)
 @pytest.mark.parametrize("device", ["cpu", "cuda", torch.device("cuda", 1)],
                          ids=["cpu", "cuda", "cuda1"])
 @pytest.mark.parametrize("dtype", [F32, BF16, F64], ids=["f32", "bf16", "f64"])
-def test_use_row_kernels(linsys, device, dtype):
-    on_card = torch.device(device).type == "cuda"
-    want = linsys in ROUTES_ON_ROWS and on_card and dtype != F64
-    assert schur.use_row_kernels(linsys, dtype, device) is want
-
-
-def _on(device, dtype):
-    """An A as the decisions see it: its device and storage dtype."""
-    return SimpleNamespace(is_cuda=torch.device(device).type == "cuda",
-                           dtype=dtype)
-
-
-@pytest.mark.parametrize("backend", ["xla", "fused"])
-@pytest.mark.parametrize("linsys", sorted(LINSYS_CHOICES))
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("dtype", [F32, BF16, F64], ids=["f32", "bf16", "f64"])
-def test_use_row_matvec(backend, linsys, device, dtype):
-    """The dense route under ``"xla"`` takes rows 2 and 3 on the card for an
-    A stored f32 or bf16; ``"fused"`` takes rows 1-3 instead, the other
-    routes decide by ``schur.use_row_kernels``, and the CPU keeps its
-    library products."""
-    opts = ipx_torch.SolverOptions(linsys=linsys, matvec_backend=backend)
-    want = (linsys == "dense" and backend == "xla" and device == "cuda"
-            and dtype != F64)
-    assert normal_eq.use_row_matvec(opts, _on(device, dtype)) is want
+def test_product_table(monkeypatch, use, device, dtype):
+    """The whole table, by route and ``matvec_backend`` (through
+    ``normal_eq.matvecs``) or by sums (``products.pair``, the re-check's
+    being ``"f64"``), device and A's storage: the fused route (dense,
+    ``"fused"``, A stored f32 or bf16) takes the kernels' wrappers on
+    either device; on the card an A stored f32 or bf16 takes rows 2 and 3
+    everywhere, float64 out for ``"f64"`` sums (``"sharded_schur"``'s local
+    ones); anything else takes the library product of its sums, ``mv`` on
+    the dense route and ``"sharded"``, ``mv_wide`` on the augmented routes,
+    ``mv64`` for ``"sharded_schur"``."""
+    calls = _recorded(monkeypatch)
+    A = _StoredA(device, dtype)
+    kind, how = use.split("/")
+    stored = dtype != F64
+    fused = kind == "dense" and how == "fused" and stored
+    if kind == "sums":
+        sums = how
+        fwd, tr = products.pair(A, sums)
+    else:
+        sums = {"dense": "working", "sharded": "working",
+                "sharded_schur": "f64"}.get(kind, "wide")
+        opts = ipx_torch.SolverOptions(linsys=kind, matvec_backend=how)
+        assert products.use_fused_matvec(opts, A) is fused
+        with schur.use_mesh(meshlib.make_mesh()):
+            fwd, tr = normal_eq.matvecs(A, opts)
+    fwd(torch.ones(1, 3))
+    tr(torch.ones(1, 2))
+    if fused or (stored and torch.device(device).type == "cuda"):
+        want = ("rows", F64 if sums == "f64" else F32)
+    else:
+        want = ({"working": "mv", "wide": "mv_wide", "f64": "mv64"}[sums],
+                None)
+    assert calls == [want, want]
 
 
 def _lp_arrays(B=2, m=24, n=40, seed=0, dtype=F32):
@@ -86,20 +136,22 @@ def test_cpu_products_stay_library_bit_for_bit(linsys, a_dtype):
     dense route under ``matvec_backend="xla"`` and on ``"sharded"``,
     float64 sums rounded once (``mv_wide``, ``mv64``) on the augmented
     routes and ``"sharded_schur"``."""
-    A, w, v, _ = _lp_arrays(dtype=a_dtype)
+    A, w, v, d2 = _lp_arrays(dtype=a_dtype)
     opts = ipx_torch.SolverOptions(linsys=linsys)
     with schur.use_mesh(meshlib.make_mesh()):
-        fwd, tr = mehrotra._matvecs(A, opts)
+        fwd, tr = normal_eq.matvecs(A, opts)
         y, t = fwd(w), tr(v)
     wide = linsys != "dense" and linsys != "sharded"
     prod = numerics.mv_wide if wide else numerics.mv
     assert torch.equal(y, prod(A, w)) and y.dtype == F32
     assert torch.equal(t, prod(A.mT, v)) and t.dtype == F32
     if linsys.startswith("augmented") or linsys == "sharded_schur":
+        # the augmented module's own product site
         with schur.use_mesh(meshlib.make_mesh()):
-            fwd, tr = augmented._products(A, opts)
-            assert torch.equal(fwd(w), numerics.mv_wide(A, w))
-            assert torch.equal(tr(v), numerics.mv_wide(A.mT, v))
+            a1, a2 = augmented._apply_unreg(A, d2, w, v, opts)
+        inv_d2 = 1.0 / torch.clamp(d2, min=torch.finfo(F32).tiny)
+        assert torch.equal(a2, numerics.mv_wide(A, w))
+        assert torch.equal(a1, -inv_d2 * w + numerics.mv_wide(A.mT, v))
 
 
 def test_cpu_sharded_float64_products_and_diagonal_stay_library():
@@ -118,7 +170,7 @@ def test_cpu_sharded_float64_products_and_diagonal_stay_library():
 
 @pytest.fixture
 def forced_rows(monkeypatch):
-    """The decision forced to the card's answer on the CPU, and every call
+    """The card test forced to the card's answer on the CPU, and every call
     of the row kernels' wrappers recorded as (name, square, out_dtype)."""
     calls = []
     a_mv, at_mv = fk.a_matvec, fk.at_matvec
@@ -131,11 +183,8 @@ def forced_rows(monkeypatch):
         calls.append(("at_matvec", False, out_dtype))
         return at_mv(A, v, out_dtype)
 
-    monkeypatch.setattr(schur, "use_row_kernels",
-                        lambda linsys, dtype, device: linsys != "dense")
-    row_matvec = normal_eq.use_row_matvec
-    monkeypatch.setattr(normal_eq, "use_row_matvec",
-                        lambda opts, A: row_matvec(opts, _on("cuda", A.dtype)))
+    monkeypatch.setattr(products, "on_card",
+                        lambda A: A.dtype in products.ROW_DTYPES)
     monkeypatch.setattr(fk, "a_matvec", a_rec)
     monkeypatch.setattr(fk, "at_matvec", at_rec)
     return calls
@@ -150,7 +199,7 @@ def test_card_routes_call_rows_2_and_3(forced_rows, linsys):
     A, w, v, _ = _lp_arrays(dtype=BF16)
     opts = ipx_torch.SolverOptions(linsys=linsys)
     with schur.use_mesh(meshlib.make_mesh()):
-        fwd, tr = mehrotra._matvecs(A, opts)
+        fwd, tr = normal_eq.matvecs(A, opts)
         y, t = fwd(w), tr(v)
     assert y.dtype == t.dtype == F32
     out = F64 if linsys == "sharded_schur" else F32
@@ -183,13 +232,13 @@ def test_card_dense_cg_operator_calls_rows_2_and_3(forced_rows):
 
 
 def test_card_augmented_products_call_rows_2_and_3(forced_rows):
-    A, w, v, _ = _lp_arrays(dtype=BF16)
+    """The augmented module's own product site, the true augmented operator
+    (A^T dy, then A dx), on rows 2 and 3 rounded to float32."""
+    A, w, v, d2 = _lp_arrays(dtype=BF16)
     for linsys in ("augmented", "augmented_schur"):
-        fwd, tr = augmented._products(
-            A, ipx_torch.SolverOptions(linsys=linsys))
-        fwd(w)
-        tr(v)
-    assert forced_rows == [("a_matvec", False, F32), ("at_matvec", False, F32)] * 2
+        augmented._apply_unreg(A, d2, w, v,
+                               ipx_torch.SolverOptions(linsys=linsys))
+    assert forced_rows == [("at_matvec", False, F32), ("a_matvec", False, F32)] * 2
 
 
 def test_card_sharded_diagonal_and_recheck_call_rows_2_and_3(forced_rows):
