@@ -401,7 +401,70 @@ def solve(c, A=None, b=None, options: Optional[SolverOptions] = None,
 POLISH_MAX_M = 8192
 
 
-def _primal_polish(A, b, x, s, c=None, support_mask=None):
+class _SupportLU:
+    """Both polishes' corrections from one float64 LU of B = A[rows][:, S]
+    on ``device``, ``rows`` the rows presolve kept.
+
+    On the columns presolve kept, every row of A is a combination of the
+    kept rows (a dropped row is zero there, a multiple of a kept row, or
+    dependent on them).  So where B is square and nonsingular, as at the
+    optimal basis of a non-degenerate LP, B dx = r[rows] gives the
+    least-squares correction of A[:, S] dx = r, and B^T w = s_S with w
+    zero off ``rows`` gives the same A^T w there as the minimum-norm one.
+    The LU serves where B is square, ``info`` is 0 and its smallest pivot
+    passes the polishes' rank cutoff, |rows| eps times the largest; a
+    factor is kept while the support stays the same.  ``served`` counts
+    the solves it gave."""
+
+    def __init__(self, A: np.ndarray, rows: np.ndarray, device):
+        self.A, self.rows, self.device = A, rows, device
+        self.served = 0
+        self._Ad = None
+        self._S = None
+        self._factor = None
+
+    def solve(self, S: np.ndarray, rhs: np.ndarray, adjoint: bool = False):
+        """dx on S with B dx = ``rhs[rows]`` (rhs over every row), or with
+        ``adjoint`` w over every row, zero off ``rows``, with
+        B^T w[rows] = ``rhs`` (rhs over S); None where the LU does not
+        serve."""
+        if self._S is None or not np.array_equal(S, self._S):
+            self._S, self._factor = S, self._lu(S)
+        if self._factor is None:
+            return None
+        lu, piv = self._factor
+        if not adjoint:
+            rhs = rhs[self.rows]
+        z = torch.linalg.lu_solve(
+            lu, piv, torch.as_tensor(rhs, device=lu.device)[:, None],
+            adjoint=adjoint)
+        self.served += 1
+        if not adjoint:
+            return _host64(z[:, 0])
+        w = np.zeros(self.A.shape[0])
+        w[self.rows] = _host64(z[:, 0])
+        return w
+
+    def _lu(self, S: np.ndarray):
+        k = self.rows.size
+        if int(S.sum()) != k:
+            return None
+        if self._Ad is None:
+            # the user's A on the device once (a view of it on the CPU,
+            # where it is contiguous); B is gathered there
+            self._Ad = torch.as_tensor(np.ascontiguousarray(self.A),
+                                       dtype=torch.float64,
+                                       device=self.device)
+        dev = self._Ad.device
+        B = self._Ad[torch.as_tensor(self.rows, device=dev)][
+            :, torch.as_tensor(np.flatnonzero(S), device=dev)]
+        lu, piv, info = torch.linalg.lu_factor_ex(B)
+        d = lu.diagonal().abs()
+        ok = (info == 0) & (d.min() > k * np.finfo(np.float64).eps * d.max())
+        return (lu, piv) if bool(ok) else None
+
+
+def _primal_polish(A, b, x, s, c=None, support_mask=None, lu=None):
     """Host-side f64 primal polish (crossover-lite, SURVEY.md §7 hard
     part 1).
 
@@ -420,8 +483,10 @@ def _primal_polish(A, b, x, s, c=None, support_mask=None):
     is ~0 for a CORRECT support (s_S ~ 0 by complementarity) and material
     precisely when the support estimate is wrong (degenerate x_j ~ s_j).
     ``support_mask`` excludes columns (e.g. presolve-fixed variables) from
-    the support regardless of x/s.  Otherwise the input x.  Skipped for
-    m > ``POLISH_MAX_M`` (host lstsq cost)."""
+    the support regardless of x/s.  Otherwise the input x.  The correction
+    comes from ``lu`` (:class:`_SupportLU`) where it serves, else from a
+    host least squares.  Skipped for m > ``POLISH_MAX_M`` (host lstsq
+    cost)."""
     if A.shape[0] > POLISH_MAX_M:
         return x
     S = x > np.maximum(s, 0.0)
@@ -430,16 +495,18 @@ def _primal_polish(A, b, x, s, c=None, support_mask=None):
     if not S.any():
         return x
     r = b - A @ x
-    from scipy.linalg import lstsq
-    AS = A[:, S]
-    try:
-        # the complete orthogonal factorization (pivoted QR), which gives
-        # the SVD's minimum-norm answer at about half its cost; numpy's
-        # rank cutoff
-        dxS = lstsq(AS, r, cond=np.finfo(float).eps * max(AS.shape),
-                    lapack_driver="gelsy")[0]
-    except (np.linalg.LinAlgError, ValueError):
-        return x
+    dxS = None if lu is None else lu.solve(S, r)
+    if dxS is None:
+        from scipy.linalg import lstsq
+        AS = A[:, S]
+        try:
+            # the complete orthogonal factorization (pivoted QR), which
+            # gives the SVD's minimum-norm answer at about half its cost;
+            # numpy's rank cutoff
+            dxS = lstsq(AS, r, cond=np.finfo(float).eps * max(AS.shape),
+                        lapack_driver="gelsy")[0]
+        except (np.linalg.LinAlgError, ValueError):
+            return x
     xp = x.copy()
     xp[S] = xp[S] + dxS
     # tiny negatives from the correction are rounding; anything material
@@ -528,7 +595,7 @@ def _measure(A, b, c, x, y, opts: SolverOptions) -> _UserAnswer:
     return _UserAnswer(x, y, sp, gap, rp, rd, merit)
 
 
-def _dual_polish(A, y, s, support):
+def _dual_polish(A, y, s, support, lu=None):
     """Host-side f64 dual polish, the mirror of :func:`_primal_polish`.
 
     ``s = c - A^T y`` of a float32 solve is at rounding size on the
@@ -536,46 +603,55 @@ def _dual_polish(A, y, s, support):
     0, and that rounding sums into x.s once the negative part is cut away.
     One least-squares correction A_S^T dy = s_S (rank-revealing: A's
     dependent rows are allowed) makes s vanish on S to float64 rounding.
-    Returns y + dy, or y where the correction fails; the caller keeps
-    whichever answer measures better.  Skipped for m > ``POLISH_MAX_M``
-    (host cost)."""
+    It comes from ``lu`` (:class:`_SupportLU`) where it serves, else from
+    a host least squares.  Returns y + dy, or y where the correction
+    fails; the caller keeps whichever answer measures better.  Skipped for
+    m > ``POLISH_MAX_M`` (host cost)."""
     if A.shape[0] > POLISH_MAX_M or not support.any():
         return y
-    from scipy.linalg import lstsq
-    try:
-        dy = lstsq(A[:, support].T, s[support], lapack_driver="gelsy")[0]
-    except (np.linalg.LinAlgError, ValueError):
-        return y
+    dy = None if lu is None else lu.solve(support, s[support], adjoint=True)
+    if dy is None:
+        from scipy.linalg import lstsq
+        try:
+            dy = lstsq(A[:, support].T, s[support],
+                       lapack_driver="gelsy")[0]
+        except (np.linalg.LinAlgError, ValueError):
+            return y
     yp = y + dy
     return yp if np.isfinite(yp).all() else y
 
 
 def _postsolve_answer(pres, red: Solution, c, A, b, opts: SolverOptions,
-                      polish: bool) -> _UserAnswer:
+                      polish: bool, device) -> _UserAnswer:
     """The reduced answer ``red`` in the units of ``(c, A, b)``: x and y
     unscaled and re-inserted, and with ``polish`` (an answer at or past an
     OPTIMAL reduced iterate) the primal polish (span ``api.polish``,
     counter ``api.polish.accepted``) and the dual polish (span
     ``api.postsolve.certify``, counter ``api.postsolve.dual_accepted``),
     the primal one kept by its own tests, the dual one where it lowers
-    the answer's merit."""
+    the answer's merit.  Both solve from one LU of the support's square
+    system on ``device`` where it serves (:class:`_SupportLU`; counter
+    ``api.polish.lu``, the polishes it served)."""
     x = pres.postsolve_x(red.x)
     y = pres.postsolve_y(red.y)
     if not polish:
         return _measure(A, b, c, x, y, opts)
     s = c - A.T @ y
+    lu = _SupportLU(A, pres.kept_rows, device)
     with obs.span("api.polish"):
-        xp = _primal_polish(A, b, x, s, c=c, support_mask=~pres.fixed_mask)
+        xp = _primal_polish(A, b, x, s, c=c, support_mask=~pres.fixed_mask,
+                            lu=lu)
         obs.count("api.polish.accepted", int(xp is not x))
     with obs.span("api.postsolve.certify"):
         ans = _measure(A, b, c, xp, y, opts)
         # the support: where x > s, and every variable presolve fixed at a
         # positive value (its row is gone, so y never priced it)
         support = (xp > np.maximum(s, 0.0)) | (pres.fixed_mask & (xp > 0))
-        polished = _measure(A, b, c, xp, _dual_polish(A, y, s, support),
-                            opts)
+        polished = _measure(A, b, c, xp,
+                            _dual_polish(A, y, s, support, lu=lu), opts)
         take = polished.merit < ans.merit
         obs.count("api.postsolve.dual_accepted", int(take))
+    obs.count("api.polish.lu", lu.served)
     return polished if take else ans
 
 
@@ -597,7 +673,7 @@ def _solve_and_postsolve(pres, c, A, b, opts: SolverOptions, device):
     status, its, trace = red.status, red.iterations, red.trace
     with obs.span("api.postsolve"):
         ans = _postsolve_answer(pres, red, c, A, b, opts,
-                                polish=red.optimal)
+                                polish=red.optimal, device=device)
         resumed = red.optimal and ans.merit > 1.0
         obs.count("api.postsolve.resumes", int(resumed))
         if resumed:
@@ -611,7 +687,7 @@ def _solve_and_postsolve(pres, c, A, b, opts: SolverOptions, device):
                 # its best iterate is polished whatever its status: the run
                 # started from an OPTIMAL one
                 ans2 = _postsolve_answer(pres, red2, c, A, b, opts,
-                                         polish=True)
+                                         polish=True, device=device)
                 if ans2.merit < ans.merit:
                     ans, its, trace = ans2, red2.iterations, red2.trace
             if ans.merit > 1.0:

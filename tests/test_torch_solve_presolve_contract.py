@@ -5,8 +5,10 @@ contract in the user's units: x >= 0 and s >= 0, the gap x.s / (1 + |c.x|)
 within ``tol``, both relative residuals within the solver's feasibility
 tolerance, the objective at the constructed optimum and at HiGHS's.  Also
 the generator's invariants, presolve's dropped rows and counters, the
-spans of presolve and postsolve, ``solve_general`` on the same LPs, and
-the continued solve where the polished answer falls short."""
+spans of presolve and postsolve, ``solve_general`` on the same LPs,
+the continued solve where the polished answer falls short, and the
+polishes from one LU of the support's square system against the least
+squares they replace."""
 import numpy as np
 import pytest
 import torch
@@ -195,6 +197,7 @@ def test_spans_nest_under_the_call():
     assert all(r.call == 0 for r in t.spans)
     cnt = t.summary()["counters"]
     assert cnt["api.polish.accepted"] in (0, 1)
+    assert cnt["api.polish.lu"] == 2
     assert cnt["api.postsolve.dual_accepted"] == 1
     assert cnt["api.postsolve.resumes"] == 0
     assert cnt["api.presolve.rows_dropped"] \
@@ -274,3 +277,115 @@ def test_an_answer_that_stays_short_is_not_optimal(monkeypatch):
     sol = ipx_torch.solve(lp["c"], lp["A"], lp["b"], device="cpu")
     assert sol.status == int(ipx_torch.Status.STALLED)
     assert sol.rel_gap > TOL and (sol.s >= 0).all()
+
+
+def _degenerate(lp):
+    """The LP with one column of x*'s support set to 0 and b = A x* made
+    again: x* stays optimal, on one column fewer than the rows presolve
+    keeps, so the support the polishes find is not square."""
+    x = lp["x_star"].copy()
+    x[np.flatnonzero(x > 0)[0]] = 0.0
+    return dict(lp, x_star=x, b=lp["A"] @ x)
+
+
+def _both_ways(lp):
+    """``_postsolve_answer`` of the CPU reduced solve of ``lp``, as it runs
+    and with the LU refused (the least squares alone): each answer with
+    its counters."""
+    c, A, b = lp["c"], lp["A"], lp["b"]
+    opts = ipx_torch.SolverOptions()
+    pres = presolve(c, A, b)
+    red = api._states_to_solutions(*api._solve_reduced(pres, opts, "cpu"))[0]
+    assert red.optimal
+    out = []
+    for refused in (False, True):
+        with pytest.MonkeyPatch.context() as mp:
+            if refused:
+                mp.setattr(api._SupportLU, "_lu", lambda self, S: None)
+            with obs.tracing() as t:
+                ans = api._postsolve_answer(pres, red, c, A, b, opts,
+                                            polish=True, device="cpu")
+        out.append((ans, t.summary()["counters"]))
+    return out
+
+
+@pytest.mark.parametrize("shape,seed", CASES)
+def test_the_lu_polishes_answer_as_the_least_squares_ones(shape, seed):
+    """Where the support is the optimal basis, B = A[kept rows, S] is
+    square: one LU serves both polishes, and x, s, b.y and the three
+    measures (each already relative) agree with the least squares' to
+    1e-10; both answers meet the contract."""
+    lp = _lp(shape, seed)
+    (lu, cnt_lu), (ls, cnt_ls) = _both_ways(lp)
+    assert (cnt_lu["api.polish.lu"], cnt_ls["api.polish.lu"]) == (2, 0)
+    b = lp["b"]
+
+    def close(u, v):
+        return np.abs(u - v).max() <= 1e-10 * (1 + np.abs(v).max())
+    assert close(lu.x, ls.x) and close(lu.s, ls.s)
+    assert close(b @ lu.y, b @ ls.y)
+    for f in ("rel_gap", "rp_rel", "rd_rel"):
+        assert abs(getattr(lu, f) - getattr(ls, f)) <= 1e-10
+    for ans in (lu, ls):
+        assert ans.merit <= 1.0
+        assert (ans.x >= 0).all() and (ans.s >= 0).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_a_support_that_is_not_square_takes_the_least_squares(shape):
+    """A degenerate optimum: the LU serves neither polish, and the answer
+    is the least squares' own, bit for bit."""
+    (lu, cnt_lu), (ls, _) = _both_ways(_degenerate(_lp(shape, 3)))
+    assert cnt_lu["api.polish.lu"] == 0
+    np.testing.assert_array_equal(lu.x, ls.x)
+    np.testing.assert_array_equal(lu.y, ls.y)
+    assert lu.merit <= 1.0
+
+
+def test_a_view_of_A_with_negative_strides_polishes_from_the_lu():
+    """The user's A as a reversed view (torch takes no negative strides):
+    the LU still serves both polishes."""
+    lp = _lp("96x192", 2)
+    A = lp["A"][::-1].copy()[::-1]
+    assert A.strides[0] < 0
+    with obs.tracing() as t:
+        sol = ipx_torch.solve(lp["c"], A, lp["b"], device="cpu")
+    assert sol.optimal
+    assert t.summary()["counters"]["api.polish.lu"] == 2
+
+
+@pytest.fixture
+def card():
+    """Skips a test that needs the card where there is none (decided in the
+    test, not when the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the H100")
+
+
+def test_card_polishes_from_one_lu_at_the_cell_shape(card, monkeypatch):
+    """One LP of the configuration, m=1024, n=2048, through ``solve`` on
+    the card: both polishes from LUs factored there, and the answer within
+    the configuration's limits as the benchmark's reference reads them."""
+    lp = gen_host.instance(CFG, 2 ** 31 + 11, 0)
+    c, A, b = lp["c"], lp["A"], lp["b"]
+    factored_on = []
+    lu_factor_ex = torch.linalg.lu_factor_ex
+
+    def spy(B, *args, **kwargs):
+        factored_on.append(B.device.type)
+        return lu_factor_ex(B, *args, **kwargs)
+    monkeypatch.setattr(torch.linalg, "lu_factor_ex", spy)
+    with obs.tracing() as t:
+        sol = ipx_torch.solve(c, A, b)
+    assert t.summary()["counters"]["api.polish.lu"] == 2
+    assert factored_on and set(factored_on) == {"cuda"}
+    lim = CFG["limits"]
+    assert sol.optimal and (sol.x >= 0).all() and (sol.s >= 0).all()
+    cx = float(c @ sol.x)
+    assert float(sol.x @ sol.s) / (1 + abs(cx)) <= lim["gap"]
+    assert np.abs(A @ sol.x - b).max() / (1 + np.abs(b).max()) <= lim["rp"]
+    assert np.abs(A.T @ sol.y + sol.s - c).max() / (1 + np.abs(c).max()) \
+        <= lim["rd"]
+    star = float(c @ lp["x_star"])
+    for got in (sol.objective, cx):
+        assert abs(got - star) <= lim["obj"] * (1 + abs(star))
